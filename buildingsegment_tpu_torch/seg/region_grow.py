@@ -1,0 +1,474 @@
+"""Planar region growing — parallel fixed-point label propagation.
+
+Port of ``segment_planes(propagation="window")`` from
+``buildingsegment_tpu/seg/region_grow.py`` (single device).  The
+reference's sequential recursive region growing (``seg_plane::
+{get_planes, Broad}``, tmc3/my_function.cpp:180-258) as a data-parallel
+fixed point over a Morton-sorted cloud:
+
+1. seed gating — the depth-0 rule over the kNN graph: a point is a seed
+   iff all K−1 neighbors pass its tangent-plane test;
+2. model-anchored label propagation over ±window slices of the sorted
+   order (``label_sweep``), with window and global coplanar merges
+   collapsed by jump rounds;
+3. once the live labels fit ``COMPACT_L`` slots, the remaining sweeps
+   run in compact slot space (``compact_sweep``);
+4. size culling (strict >, my_function.cpp:199) and dense renumbering
+   in ascending seed order (my_function.cpp:200-201), plus the plane
+   table.
+
+The window is ±16 sorted rows (the JAX package's default, which its
+pipeline uses).  JAX's ``lax.while_loop`` becomes a Python loop that reads the sweep's
+change count (and the counters the loop conditions need) once per sweep:
+one host sync per sweep, counted in ``SegmentationResult.host_syncs``.
+
+Not ported yet (ROADMAP.md, later slices): ``propagation="graph"``,
+``axis_name`` sharding, ``seed_override`` / ``window_seeds``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from buildingsegment_tpu_torch.ops.compact_sweep import COMPACT_L, compact_sweep
+from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
+from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
+from buildingsegment_tpu_torch.ops.window_sweep import label_sweep
+from buildingsegment_tpu_torch.utils.device import synchronize
+
+__all__ = ["segment_planes", "SegmentationResult"]
+
+#: jump-doubling rounds per sweep (the JAX package's default)
+JUMP_ROUNDS = 2
+#: half-width of the propagation window in sorted rows
+WINDOW = 16
+#: largest problem the compact loop takes (the TPU kernel's VMEM bound,
+#: kept so both packages take the same path)
+COMPACT_MAX_ROWS = 262144
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentationResult:
+    """Output of :func:`segment_planes`.
+
+    Attributes:
+        plane_idx: int32[N] — plane id per point, 1..num_planes, or −1.
+        num_planes: number of accepted planes P.
+        plane_normal: float32[max_planes, 3] — mean unit normal (row p−1
+            for plane id p); zero rows beyond P.
+        plane_center: float32[max_planes, 3] — mean position per plane.
+        plane_count: int32[max_planes] — member count per plane.
+        num_sweeps: propagation sweeps run.
+        diagnostics: int32[4] — [peak live labels, peak live labels
+            beyond the per-sweep merge cap, planes beyond max_planes,
+            1 if the solve stopped at max_sweeps unconverged].
+        host_syncs: device→host reads the solve made.
+        timings: seconds per phase (seed, warm, compact, finish), each
+            ending in a device synchronize.
+    """
+
+    plane_idx: torch.Tensor
+    num_planes: int
+    plane_normal: torch.Tensor
+    plane_center: torch.Tensor
+    plane_count: torch.Tensor
+    num_sweeps: int
+    diagnostics: torch.Tensor
+    host_syncs: int = 0
+    timings: dict = dataclasses.field(default_factory=dict)
+
+
+def _sum3(t: torch.Tensor) -> torch.Tensor:
+    """Sum over a last axis of 3, in the order (t0 + t1) + t2."""
+    return t[..., 0] + t[..., 1] + t[..., 2]
+
+
+def _outer_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[A, B] table of a_i · b_j for a [A, 3], b [B, 3]."""
+    return (a[:, None, 0] * b[None, :, 0] + a[:, None, 1] * b[None, :, 1]
+            + a[:, None, 2] * b[None, :, 2])
+
+
+def _acc_models(rows: torch.Tensor):
+    """(unit normal, center, rms radius, cnt_all) from stats rows.
+
+    Columns 0-7 are all-member sums [cnt, Σn̂, Σp, Σ|p|²]; 16-col rows
+    add the anchor-pure sums in the same layout.  Models come from the
+    pure sums, falling back to the all-member sums for labels whose pure
+    count is zero; 8-col rows use the all-member sums directly.
+    """
+    cnt_a = rows[..., 0]
+    if rows.shape[-1] == 8:
+        sc = torch.clamp_min(cnt_a, 1.0)[..., None]
+        sn = rows[..., 1:4] / sc
+        c = rows[..., 4:7] / sc
+        sq = rows[..., 7] / sc[..., 0]
+    else:
+        cnt_p = rows[..., 8]
+        usep = cnt_p > 0
+        sc = torch.where(usep, cnt_p, torch.clamp_min(cnt_a, 1.0))[..., None]
+        sn = torch.where(usep[..., None], rows[..., 9:12], rows[..., 1:4]) / sc
+        c = torch.where(usep[..., None], rows[..., 12:15], rows[..., 4:7]) / sc
+        sq = torch.where(usep, rows[..., 15], rows[..., 7]) / sc[..., 0]
+    ln = torch.sqrt(torch.clamp_min(_sum3(sn * sn), 1e-20))[..., None]
+    r = torch.sqrt(torch.clamp_min(sq - _sum3(c * c), 0.0))
+    return sn / ln, c, r, cnt_a
+
+
+def _segment_sum(idx: torch.Tensor, rows: torch.Tensor, size: int):
+    """[size, C] per-id sums of rows [N, C], each id's rows added in row
+    order: accumulating ``index_put_`` runs sequentially on the CPU and
+    sorts stably on the card, so the sums do not change from run to run
+    (``index_add_`` uses float atomics on the card)."""
+    out = torch.zeros((size, rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    return out.index_put_((idx,), rows, accumulate=True)
+
+
+def _f32sq(x: float) -> float:
+    """float32(x)², rounded in float32."""
+    return float(np.float32(x) * np.float32(x))
+
+
+def segment_planes(
+    positions: torch.Tensor,
+    normals: torch.Tensor,
+    neigh_idx: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    neigh_sq_dist: Optional[torch.Tensor] = None,
+    max_edge_dist: Optional[float] = None,
+    curvature: Optional[torch.Tensor] = None,
+    th_seed_curvature: Optional[float] = None,
+    th_thickness: float = 300.0,
+    th_normal_cos: float = 0.88,
+    th_point_count: int = 400,
+    max_planes: int = 4096,
+    max_sweeps: int = 64,
+    convergence_tol: float = 0.0,
+    signed_normals: bool = False,
+    th_anchor_cos: float = 0.95,
+    compact: Optional[bool] = None,
+) -> SegmentationResult:
+    """Segment a Morton-sorted point cloud into planar regions.
+
+    Args:
+        positions: int32/float [N, 3] bbox-shifted, Morton-sorted.
+        normals: float32[N, 3] unit normals.
+        neigh_idx: int32[N, K] kNN graph (self at slot 0) — feeds the
+            seed rule.
+        mask: bool[N] validity.
+        neigh_sq_dist: float32[N, K] squared neighbor distances; with
+            ``max_edge_dist`` they gate the seed graph's edges.
+        th_anchor_cos: anchor-pure model estimation — a member feeds its
+            region's mean model only when its normal agrees with the
+            region seed's normal by this cosine (≤ th_normal_cos
+            disables the gate).
+        compact: force the compact loop on (True) or off (False).  None
+            takes it on the card when 2048 < N ≤ 262,144 — where the JAX
+            package takes it on the TPU — and never on the CPU, where
+            the JAX package keeps its XLA loop.
+    """
+    t_start = time.perf_counter()
+    dev = positions.device
+    n, _k = neigh_idx.shape
+    pos = positions.float()
+    nrm = normals.float()
+    ng = n
+    inf = ng
+    syncs = 0
+    timings = {}
+    cmag = (lambda x: x) if signed_normals else torch.abs
+    sns = nrm if signed_normals else canonicalize_normals(nrm)
+    rows_ng = torch.arange(ng, dtype=torch.int32, device=dev)
+
+    # 1. seed gating over the kNN graph (depth-0 rule)
+    nb = neigh_idx[:, 1:].long()
+    nb_valid = mask[nb] & mask[:, None] & (nb != rows_ng.long()[:, None])
+    if neigh_sq_dist is not None and max_edge_dist is not None:
+        nb_valid = nb_valid & (neigh_sq_dist[:, 1:] <= _f32sq(max_edge_dist))
+    dv = pos[nb] - pos[:, None, :]
+    dist = torch.abs(_sum3(dv * nrm[:, None, :]))
+    cos = cmag(_sum3(nrm[nb] * nrm[:, None, :]))
+    fwd_ok = (dist <= th_thickness) & (cos >= th_normal_cos) & nb_valid
+    seed = fwd_ok.all(dim=1) & mask
+    if curvature is not None and th_seed_curvature is not None:
+        seed = seed & (curvature <= th_seed_curvature)
+    del dv, dist, cos, fwd_ok, nb, nb_valid
+
+    # anchor table: row r holds the seed normal of label r for the whole
+    # solve (purity gate of the model sums)
+    anchor_gate = th_anchor_cos > th_normal_cos
+    anchor_tab = torch.where(seed[:, None], sns, 0.0) if anchor_gate else None
+
+    def purity(label):
+        if not anchor_gate:
+            return label < inf
+        anc = anchor_tab[label.clamp(0, ng - 1)]
+        agree = cmag(_sum3(sns * anc))
+        return (label < inf) & (agree >= th_anchor_cos)
+
+    ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
+    payload8_sq = torch.cat([ones, sns, pos, _sum3(pos * pos)[:, None]], 1)
+    payload8 = torch.cat([ones, sns, pos, torch.zeros_like(ones)], 1)
+
+    def stats_payload(label, valid, with_sq):
+        """Per-point payload: 8 all-member columns [cnt, Σn̂, Σp, Σ|p|²],
+        plus 8 anchor-pure columns when the anchor gate is on."""
+        base = payload8_sq if with_sq else payload8
+        if anchor_gate:
+            wp = purity(label).float()[:, None]
+            payload = torch.cat([base, base * wp], 1)
+        else:
+            payload = base
+        return torch.where(valid[:, None], payload, 0.0)
+
+    label0 = torch.where(seed, rows_ng, inf)
+    ws = WINDOW
+    # contiguous component columns, made once: the kernels take [n] rows
+    px, py, pz = (pos[:, d].contiguous() for d in range(3))
+    nx_, ny_, nz_ = (nrm[:, d].contiguous() for d in range(3))
+    edge_gate_val = (
+        max_edge_dist if max_edge_dist is not None else 2 * th_thickness
+    )
+    root_gate = float(np.sqrt(np.float32(edge_gate_val ** 2)))
+    # per-sweep global-merge table capacity (labels beyond it defer
+    # their global merge to a later sweep)
+    L = min(max_planes, ng, 1024)
+    sweep_kw = dict(
+        w=ws, th_thickness=float(th_thickness),
+        th_normal_cos=float(th_normal_cos), edge_gate2=edge_gate_val ** 2,
+        signed=signed_normals,
+    )
+
+    def window_body(label, singleton=False):
+        """One iteration: stats → compact [L] table → window sweep →
+        window + global merge hooks → jump rounds → apply.
+
+        ``singleton=True`` specializes the first sweep, where every label
+        is its own row or none: the stats row of label g IS row g's
+        payload and its model IS the row's own normal/position
+        (bit-identical values, no scatter or gather).
+        """
+        valid = label < inf
+        if singleton:
+            if anchor_gate:
+                agree = cmag(_sum3(sns * sns))
+                pure_v = valid & (agree >= th_anchor_cos)
+                payload = torch.cat(
+                    [torch.where(valid[:, None], payload8_sq, 0.0),
+                     torch.where(pure_v[:, None], payload8_sq, 0.0)], 1)
+            else:
+                payload = torch.where(valid[:, None], payload8_sq, 0.0)
+            flag = valid
+            ln = torch.sqrt(torch.clamp_min(_sum3(sns * sns), 1e-20))[:, None]
+            mp = torch.where(valid[:, None], torch.cat([sns / ln, pos], 1), 0.0)
+            acc = None
+        else:
+            tgt = torch.where(valid, label, ng).long()
+            payload = stats_payload(label, valid, with_sq=True)
+            acc = _segment_sum(tgt, payload, ng + 1)[:ng]
+            model_n, model_c, _r, cnt = _acc_models(acc)
+            flag = cnt > 0
+
+        # live labels → [L] slots by rank
+        rank = prefix_sum_i32(flag.to(torch.int32))
+        slot_of = torch.where(flag & (rank <= L), rank - 1, L).long()
+        top_lab = torch.full((L + 1,), -1, dtype=torch.int32, device=dev)
+        top_lab[slot_of] = rows_ng
+        top_lab = top_lab[:L]
+        live = top_lab >= 0
+        top_lab = torch.clamp_min(top_lab, 0)
+
+        # window sweep: hop-min + merge-hook candidates
+        if not singleton:
+            model_nc = torch.cat([model_n, model_c], 1)
+            mp = torch.where(valid[:, None], model_nc[label.clamp(0, ng - 1)], 0.0)
+        new, best = label_sweep(
+            (px, py, pz), (nx_, ny_, nz_),
+            (mp[:, 0], mp[:, 1], mp[:, 2]), (mp[:, 3], mp[:, 4], mp[:, 5]),
+            label, mask, inf_label=inf, **sweep_kw,
+        )
+
+        # global coplanar-overlap pairs on the compact [L] table
+        n_tab, c_tab, r_tab, _cnt = _acc_models(
+            payload[top_lab] if singleton else acc[top_lab]
+        )
+        nc = _sum3(n_tab * c_tab)
+        ncT = _outer_dot(n_tab, c_tab)
+        nrm_sep = ncT - nc[:, None]
+        nrm_sep_b = nc[None, :] - ncT.T
+        cosab = cmag(_outer_dot(n_tab, n_tab))
+        ccd = _sum3(c_tab * c_tab)
+        d2 = ccd[:, None] + ccd[None, :] - 2.0 * _outer_dot(c_tab, c_tab)
+        inplane2 = torch.clamp_min(d2 - nrm_sep * nrm_sep, 0.0)
+        reach = 2.0 * (r_tab[:, None] + r_tab[None, :]) + root_gate
+        ok_pair = (
+            (torch.abs(nrm_sep) <= th_thickness)
+            & (torch.abs(nrm_sep_b) <= th_thickness)
+            & (cosab >= th_normal_cos)
+            & (inplane2 <= reach * reach)
+            & live[:, None] & live[None, :]
+        )
+        la, lb = top_lab[:, None], top_lab[None, :]
+        pair_lo = torch.where(ok_pair & (la != lb), torch.minimum(la, lb), inf)
+        row_min = pair_lo.amin(dim=1)
+
+        # one scatter-min hooks both merge kinds
+        idx_cat = torch.cat([
+            torch.where(best < inf, label, ng),
+            torch.where(row_min < inf, top_lab, ng),
+        ]).long()
+        val_cat = torch.cat([best, row_min])
+        parent = torch.cat([rows_ng, rows_ng.new_full((1,), inf)])
+        parent.scatter_reduce_(0, idx_cat, val_cat, "amin")
+        parent = parent[:ng]
+        for _ in range(JUMP_ROUNDS):
+            parent = torch.minimum(parent, parent[parent.clamp(0, ng - 1).long()])
+
+        live_cnt = rank[ng - 1]
+        out = torch.where(new < inf, parent[new.clamp(0, ng - 1).long()], new)
+        return out, live_cnt, torch.clamp_min(live_cnt - L, 0)
+
+    def live_count(label):
+        flags = torch.zeros(ng + 1, dtype=torch.bool, device=dev)
+        flags[label.clamp(max=inf).long()] = True
+        return flags[:ng]
+
+    tol_count = max(1, int(convergence_tol * ng))
+    if compact is None:
+        use_compact = positions.is_cuda and COMPACT_L < ng <= COMPACT_MAX_ROWS
+    else:
+        use_compact = bool(compact) and ng <= COMPACT_MAX_ROWS
+    synchronize(dev)
+    t_seed = time.perf_counter()
+    timings["seg_seed"] = t_seed - t_start
+
+    if not use_compact:
+        label, changed, it, peak_live, peak_over = label0, True, 0, 0, 0
+        while changed and it < max_sweeps:
+            new, live, over = window_body(label)
+            nch = (new != label).sum()
+            nch, live, over = torch.stack([nch, live, over]).tolist()
+            syncs += 1
+            label, changed, it = new, nch >= tol_count, it + 1
+            peak_live, peak_over = max(peak_live, live), max(peak_over, over)
+        unconverged, sweeps_used = changed, it
+        timings["seg_warm"] = time.perf_counter() - t_seed
+        timings["seg_compact"] = 0.0
+    else:
+        lc = COMPACT_L
+        if max_sweeps >= 1:
+            # sweep 1 with the singleton specialization
+            label, live, over = window_body(label0, singleton=True)
+            nch = (label != label0).sum()
+            nch, live, over, live_now = torch.stack(
+                [nch, live, over, live_count(label).sum()]).tolist()
+            changed, it, peak_live, peak_over = nch >= tol_count, 1, live, over
+        else:
+            label, changed, it, peak_live, peak_over = label0, True, 0, 0, 0
+            live_now = int((label0 < inf).sum())
+        syncs += 1
+        while changed and it < max_sweeps and live_now > lc:
+            new, live, over = window_body(label)
+            nch = (new != label).sum()
+            nch, live, over, live_now = torch.stack(
+                [nch, live, over, live_count(new).sum()]).tolist()
+            syncs += 1
+            label, changed, it = new, nch >= tol_count, it + 1
+            peak_live, peak_over = max(peak_live, live), max(peak_over, over)
+        t_warm = time.perf_counter()
+        timings["seg_warm"] = t_warm - t_seed
+
+        # relabel to compact slots (rank order ⇒ slot order ≡ label order)
+        flags = live_count(label)
+        crank = prefix_sum_i32(flags.to(torch.int32))
+        live0 = int(crank[ng - 1])
+        syncs += 1
+        peak_live = max(peak_live, live0)
+        if live0 <= lc and changed and it < max_sweeps:
+            slot_of = torch.where(flags & (crank <= lc), crank - 1, lc)
+            top_lab = torch.full((lc + 1,), -1, dtype=torch.int32, device=dev)
+            top_lab[slot_of.long()] = rows_ng
+            top_lab = top_lab[:lc]
+            clab = torch.where(
+                label < inf, slot_of[label.clamp(0, ng - 1).long()], lc
+            ).to(torch.int32)
+            if anchor_gate:
+                anc_c = torch.where(
+                    (top_lab >= 0)[:, None],
+                    anchor_tab[top_lab.clamp(0, ng - 1).long()], 0.0,
+                )
+            else:
+                anc_c = torch.zeros((lc, 3), dtype=torch.float32, device=dev)
+            sns_cols = tuple(sns[:, d].contiguous() for d in range(3))
+            bound = max(live0, 1)
+            while changed and it < max_sweeps:
+                clab, counters = compact_sweep(
+                    (px, py, pz), (nx_, ny_, nz_), sns_cols, mask, clab, anc_c,
+                    bound, lc=lc, root_gate=root_gate,
+                    th_anchor_cos=float(th_anchor_cos),
+                    anchor_gate=anchor_gate, jump_rounds=JUMP_ROUNDS,
+                    **sweep_kw,
+                )
+                nchg, top = counters.tolist()
+                syncs += 1
+                changed, it = nchg >= tol_count, it + 1
+                # min-slot merging skews survivors low: tighten the
+                # slot-id bound to the largest surviving slot + 1
+                bound = min(max(top + 1, 1), bound)
+            label = torch.where(
+                clab < lc, top_lab[clab.clamp(0, lc - 1).long()], inf
+            )
+        unconverged, sweeps_used = changed, it
+        timings["seg_compact"] = time.perf_counter() - t_warm
+    t_loops = time.perf_counter()
+    label = torch.where(mask, label, inf)
+
+    # 5. cull small planes (strict >)
+    counts = torch.bincount(label.clamp(max=ng).long(), minlength=ng + 1)
+    surviving = counts[:ng] > th_point_count
+    keep = (label < inf) & surviving[label.clamp(0, ng - 1).long()]
+    label = torch.where(keep, label, inf)
+
+    # 6. dense renumber in ascending seed order → ids 1..P
+    rank = prefix_sum_i32(surviving.to(torch.int32))
+    plane_id = torch.where(
+        label < inf, rank[label.clamp(0, ng - 1).long()], 0
+    ).to(torch.int32)
+    plane_idx = torch.where(plane_id > 0, plane_id, -1)
+    num_planes = int(surviving.sum())
+    syncs += 1
+
+    # plane table (anchor-pure means, all-member fallback); ids beyond
+    # max_planes are dropped from the table
+    in_table = (plane_id > 0) & (plane_id <= max_planes)
+    seg = torch.where(in_table, plane_id - 1, max_planes).long()
+    fin_payload = stats_payload(label, plane_id > 0, with_sq=False)
+    acc_fin = _segment_sum(seg, fin_payload, max_planes + 1)
+    plane_normal, plane_center, _r_fin, cnt_f = _acc_models(acc_fin[:max_planes])
+    cnt = cnt_f.to(torch.int32)
+    plane_normal = torch.where((cnt > 0)[:, None], plane_normal, 0.0)
+    plane_center = torch.where((cnt > 0)[:, None], plane_center, 0.0)
+    diagnostics = torch.tensor(
+        [peak_live, peak_over, max(num_planes - max_planes, 0),
+         int(unconverged)], dtype=torch.int32,
+    )
+    synchronize(dev)
+    timings["seg_finish"] = time.perf_counter() - t_loops
+    return SegmentationResult(
+        plane_idx=plane_idx,
+        num_planes=num_planes,
+        plane_normal=plane_normal,
+        plane_center=plane_center,
+        plane_count=cnt,
+        num_sweeps=sweeps_used,
+        diagnostics=diagnostics,
+        host_syncs=syncs,
+        timings=timings,
+    )
