@@ -10,17 +10,17 @@ Every function takes its tensors on an explicit device.  The kernel path
 is chosen by ``tensor.is_cuda`` alone: a CUDA tensor launches the CUDA
 kernel (or raises), a CPU tensor runs the kernel's plain PyTorch version.
 
-The host modules of the JAX package that import no jax (``config``,
-``io``, ``native``, ``utils.synthetic``, ``utils.quality``) are used as
-they are.
+The package imports nothing of ``buildingsegment_tpu``: the host
+modules it needs (``config``, ``io.ply``, ``utils.synthetic``,
+``utils.quality``) are its own copies.
 
 Public entry points:
     - :mod:`buildingsegment_tpu_torch.pipeline` — ``segment_cloud`` /
       ``segment_file``
 """
 
-from buildingsegment_tpu.config import PipelineConfig
+from buildingsegment_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["PipelineConfig", "__version__"]
+__all__ = ["DEFAULT_CONFIG", "PipelineConfig", "__version__"]

@@ -1,10 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use by ``nvcc`` into
-one shared library with a plain C interface, loaded with ``ctypes``
-(pointers and the stream passed as ``c_void_p``).  The library lands in
-``_build/`` next to this file, named by a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one is reused.
+The sources under ``csrc/`` are compiled at first use by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (pointers and
+the stream passed as ``c_void_p``).  The library lands in ``_build/``
+next to this file, named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is reused.
 
 ``-fmad=false`` is deliberate: the window tests are exact min/or chains
 over f32 products, and contracting them to FMA would flip gate decisions
@@ -26,6 +27,7 @@ import sys
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -34,20 +36,33 @@ __all__ = [
     "reset_launch_counts",
     "label_sweep_cuda",
     "compact_sweep_cuda",
+    "stats_sweep_cuda",
+    "seed_sweep_cuda",
+    "refine_sweep_cuda",
+    "payload_moment_sums_cuda",
+    "table_lookup_cuda",
+    "plane_adopt_cuda",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
-_SOURCES = ("label_sweep.cu", "compact_sweep.cu")
+_SOURCES = (
+    "label_sweep.cu", "compact_sweep.cu", "stats_sweep.cu", "seed_sweep.cu",
+    "refine_sweep.cu", "segsum.cu", "adopt.cu",
+)
 _HEADERS = ("sweep_common.cuh",)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 #: kernel name → number of launches since the last reset
-launch_counts = {"label_sweep": 0, "compact_sweep": 0}
+launch_counts = {
+    "label_sweep": 0, "compact_sweep": 0, "stats_sweep": 0,
+    "seed_sweep": 0, "refine_sweep": 0, "payload_moment_sums": 0,
+    "table_lookup": 0, "plane_adopt": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
@@ -86,18 +101,40 @@ def build(verbose: bool = False) -> float:
     if os.path.exists(path):
         return 0.0
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [os.path.join(_CSRC, s) for s in _SOURCES]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr, file=sys.stderr)
-    os.replace(tmp, path)
+    jobs = []
+    for src in _SOURCES:
+        obj = os.path.join(_BUILD, f"{src}.{tag}.o")
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", os.path.join(_CSRC, src), "-o", obj]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, obj, proc))
+    failed = []
+    for src, _obj, proc in jobs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(err, file=sys.stderr)
+    objs = [obj for _src, obj, _proc in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = f"{path}.{tag}"
+        res = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return time.perf_counter() - t0
 
 
@@ -115,6 +152,17 @@ def _load() -> ctypes.CDLL:
         [_P] * 20 + [_I] * 4 + [_F] * 5 + [_I] * 3 + [_P]
     )
     lib.bst_compact_sweep.restype = _I
+    lib.bst_stats_sweep.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
+    lib.bst_seed_sweep.argtypes = [_P] * 9 + [_I, _I, _F, _F, _I, _P]
+    lib.bst_refine_sweep.argtypes = (
+        [_P] * 9 + [_I, _P, _I, _I, _F, _F, _F, _I, _I, _I, _P]
+    )
+    lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
+    lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
+    lib.bst_adopt.argtypes = [_P] * 8 + [_I, _F, _F, _I, _P]
+    for fn in (lib.bst_stats_sweep, lib.bst_seed_sweep, lib.bst_refine_sweep,
+               lib.bst_paymom, lib.bst_lookup, lib.bst_adopt):
+        fn.restype = _I
     _lib = lib
     return lib
 
@@ -228,3 +276,171 @@ def compact_sweep_cuda(
     _check(lib, err, "compact_sweep")
     launch_counts["compact_sweep"] += 1
     return out, counters
+
+
+def _cuda_tensor(t: torch.Tensor, dtype, shape, what: str) -> torch.Tensor:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_cuda:
+        raise ValueError(f"{what}: need a CUDA {dtype}{tuple(shape)}, got "
+                         f"{t.dtype}{tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def ceil128(x: int) -> int:
+    """``x`` rounded up to a multiple of 128 (the TPU kernels' id chunk:
+    the live bound of the table kernels)."""
+    return -(-int(x) // 128) * 128
+
+
+def _stats_ranks(k, w, radius, max_nn):
+    """(rank of the k-th NN among the 2w candidates, rank of the hybrid
+    cap or 0 when the cap is wider than the window, f32 radius²)."""
+    cap_active = max_nn is not None and (max_nn - 1) < 2 * w
+    r2 = float(np.float32(radius) * np.float32(radius))
+    return k - 1, (max_nn - 1) if cap_active else 0, r2
+
+
+#: rows summed in order by one block of the payload-moment sums
+#: (kPaymomRows in csrc/segsum.cu) and of the adoption sums (kAdoptRows
+#: in csrc/adopt.cu); the plain versions use the same blocks
+PAYMOM_ROWS = 1024
+ADOPT_ROWS = 256
+ADOPT_LANES = 128
+
+
+def stats_sweep_cuda(pos, mask, *, k, w, radius, max_nn):
+    """CUDA stats sweep (csrc/stats_sweep.cu); see
+    :func:`buildingsegment_tpu_torch.ops.stats_sweep.stats_sweep`."""
+    n = mask.shape[0]
+    comps = [_f32(t, n, "pos") for t in pos]
+    mask_u8 = _mask_bytes(mask, n)
+    r_k, r_cap, r2 = _stats_ranks(k, w, radius, max_nn)
+    out = torch.empty((11, n), dtype=torch.float32, device=mask.device)
+    lib = _load()
+    err = lib.bst_stats_sweep(
+        *[t.data_ptr() for t in comps], mask_u8.data_ptr(), out.data_ptr(),
+        n, w, r_k, r_cap, r2, _stream(out),
+    )
+    _check(lib, err, "stats_sweep")
+    launch_counts["stats_sweep"] += 1
+    return out[0], out[1], out[2:5].T, out[5:11].T
+
+
+def seed_sweep_cuda(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
+                    signed=False):
+    """CUDA seed sweep (csrc/seed_sweep.cu); see
+    :func:`buildingsegment_tpu_torch.ops.window_sweep.seed_sweep`."""
+    n = mask.shape[0]
+    comps = [_f32(t, n, name) for group, name in ((pos, "pos"), (nrm, "nrm"))
+             for t in group]
+    dk = _f32(dk, n, "dk")
+    mask_u8 = _mask_bytes(mask, n)
+    seed = torch.empty(n, dtype=torch.bool, device=mask.device)
+    lib = _load()
+    err = lib.bst_seed_sweep(
+        *[t.data_ptr() for t in comps], mask_u8.data_ptr(), dk.data_ptr(),
+        seed.data_ptr(), n, w, th_thickness, th_normal_cos, int(signed),
+        _stream(seed),
+    )
+    _check(lib, err, "seed_sweep")
+    launch_counts["seed_sweep"] += 1
+    return seed
+
+
+def refine_sweep_cuda(pos, nrm, mask, pid, table, n_live, *, w, th_thickness,
+                      th_normal_cos, edge_gate2, signed=False, clean=False,
+                      adopt=True):
+    """CUDA refinement sweep (csrc/refine_sweep.cu); see
+    :func:`buildingsegment_tpu_torch.ops.window_sweep.refine_sweep`."""
+    n = mask.shape[0]
+    comps = [_f32(t, n, name) for group, name in ((pos, "pos"), (nrm, "nrm"))
+             for t in group]
+    pid = _cuda_tensor(pid, torch.int32, (n,), "pid")
+    p = table.shape[0]
+    table = _cuda_tensor(table, torch.float32, (p, 4), "table")
+    if table.data_ptr() % 16:  # read as float4 rows
+        table = table.clone()
+    ntab = min(ceil128(n_live), p)
+    mask_u8 = _mask_bytes(mask, n)
+    out = torch.empty_like(pid)
+    lib = _load()
+    err = lib.bst_refine_sweep(
+        *[t.data_ptr() for t in comps], mask_u8.data_ptr(), pid.data_ptr(),
+        table.data_ptr(), ntab, out.data_ptr(), n, w, th_thickness,
+        th_normal_cos, edge_gate2, int(signed), int(clean), int(adopt),
+        _stream(out),
+    )
+    _check(lib, err, "refine_sweep")
+    launch_counts["refine_sweep"] += 1
+    return out
+
+
+def payload_moment_sums_cuda(ids, payload, q, n_live, *, table_cap):
+    """CUDA payload sums + second moments (csrc/segsum.cu); see
+    :func:`buildingsegment_tpu_torch.ops.segsum.plane_payload_moment_sums`."""
+    n = ids.shape[0]
+    ids = _cuda_tensor(ids, torch.int32, (n,), "ids")
+    payload = _cuda_tensor(payload, torch.float32, (n, 8), "payload")
+    q = _cuda_tensor(q, torch.float32, (q.shape[0], 3), "q")
+    cap128 = ceil128(table_cap)
+    bound = min(ceil128(n_live), cap128)
+    dev = ids.device
+    sums = torch.zeros((cap128, 8), dtype=torch.float32, device=dev)
+    moments = torch.zeros((cap128, 6), dtype=torch.float32, device=dev)
+    if bound == 0:  # no live id: nothing to sum, nothing launched
+        return sums, moments
+    nblk = -(-n // PAYMOM_ROWS)
+    partial = torch.empty((nblk, bound, 16), dtype=torch.float32, device=dev)
+    lib = _load()
+    err = lib.bst_paymom(
+        ids.data_ptr(), payload.data_ptr(), q.data_ptr(), q.shape[0],
+        partial.data_ptr(), sums.data_ptr(), moments.data_ptr(), n, bound,
+        _stream(ids),
+    )
+    _check(lib, err, "payload_moment_sums")
+    launch_counts["payload_moment_sums"] += 1
+    return sums, moments
+
+
+def table_lookup_cuda(ids, lut, n_live):
+    """CUDA table lookup (csrc/segsum.cu); see
+    :func:`buildingsegment_tpu_torch.ops.segsum.table_lookup`."""
+    n = ids.shape[0]
+    ids = _cuda_tensor(ids, torch.int32, (n,), "ids")
+    lut = _cuda_tensor(lut, torch.int32, (lut.shape[0],), "lut")
+    bound = min(ceil128(n_live), lut.shape[0])
+    out = torch.empty_like(ids)
+    lib = _load()
+    err = lib.bst_lookup(ids.data_ptr(), lut.data_ptr(), bound,
+                         out.data_ptr(), n, _stream(out))
+    _check(lib, err, "table_lookup")
+    launch_counts["table_lookup"] += 1
+    return out
+
+
+def plane_adopt_cuda(payload, holes, table, rows, *, th_thickness, th_cos,
+                     signed=False):
+    """CUDA hole adoption (csrc/adopt.cu); see
+    :func:`buildingsegment_tpu_torch.ops.adopt.plane_adopt`.  ``table``
+    is the f32[10, 128] lane table of ``ops.adopt.adopt_table``."""
+    n = holes.shape[0]
+    payload = _cuda_tensor(payload, torch.float32, (n, 8), "payload")
+    table = _cuda_tensor(table, torch.float32, (10, ADOPT_LANES), "table")
+    rows = _cuda_tensor(rows, torch.int32, (ADOPT_LANES,), "rows")
+    holes_u8 = _mask_bytes(holes, n)
+    dev = holes.device
+    adopted = torch.empty(n, dtype=torch.bool, device=dev)
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    nblk = -(-n // ADOPT_ROWS)
+    partial = torch.empty((nblk, ADOPT_LANES, 8), dtype=torch.float32,
+                          device=dev)
+    acc = torch.empty((ADOPT_LANES, 8), dtype=torch.float32, device=dev)
+    lib = _load()
+    err = lib.bst_adopt(
+        payload.data_ptr(), holes_u8.data_ptr(), table.data_ptr(),
+        rows.data_ptr(), adopted.data_ptr(), row.data_ptr(),
+        partial.data_ptr(), acc.data_ptr(), n, th_thickness, th_cos,
+        int(signed), _stream(row),
+    )
+    _check(lib, err, "plane_adopt")
+    launch_counts["plane_adopt"] += 1
+    return adopted, row, acc

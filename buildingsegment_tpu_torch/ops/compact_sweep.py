@@ -20,9 +20,8 @@ partial table per block of 1024 rows (block b covers rows
 [b·1024 − w, (b+1)·1024 − w), the TPU kernel's column blocks of its
 w-padded slab), each summed in row order, then the tables summed in
 block order.  The CUDA kernel (``csrc/compact_sweep.cu``) keeps that
-order exactly, and so does the plain version below: its accumulating
-``index_put_`` adds each key's rows in row order (sequentially on the
-CPU, after a stable sort on the card).
+order exactly, and so does the plain version below, through
+``segsum.block_order_sums``.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from typing import Tuple
 import torch
 
 from buildingsegment_tpu_torch import kernels
+from buildingsegment_tpu_torch.ops.segsum import block_order_sums
 from buildingsegment_tpu_torch.ops.window_sweep import label_sweep_reference
 
 __all__ = ["compact_sweep", "compact_sweep_reference", "COMPACT_L"]
@@ -75,13 +75,7 @@ def compact_sweep_reference(
     rows = kernels.COMPACT_STATS_ROWS
     nblk = -(-(n + w) // rows)
     blk = (torch.arange(n, device=dev) + w) // rows
-    key = (blk * lc + slot)[valid]
-    part = torch.zeros((nblk * lc, 16), dtype=torch.float32, device=dev)
-    part.index_put_((key,), payload[valid], accumulate=True)
-    part = part.view(nblk, lc, 16)
-    acc = torch.zeros((lc, 16), dtype=torch.float32, device=dev)
-    for b in range(nblk):
-        acc = acc + part[b]
+    acc = block_order_sums(blk[valid], slot[valid], payload[valid], nblk, lc)
 
     # D. models
     cnt = acc[:, 0]

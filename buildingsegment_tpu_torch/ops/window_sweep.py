@@ -1,7 +1,11 @@
-"""The window label-propagation sweep (one sweep of the window solver).
+"""The ±w window sweeps: label propagation, seed rule, refinement.
 
-Port of ``label_sweep`` / ``_label_kernel`` in
-``buildingsegment_tpu/ops/window_sweep.py``.  Per sorted row i and
+Port of ``label_sweep`` / ``_label_kernel``, ``seed_sweep_pair`` /
+``_seed_kernel_sym`` and ``refine_table_sweep_pair`` /
+``_refine_table_kernel_pair`` in
+``buildingsegment_tpu/ops/window_sweep.py``.
+
+``label_sweep`` (one sweep of the window solver): per sorted row i and
 every window offset o ∈ {−w…−1, +1…+w}, with candidate j = i + o inside
 the edge gate (both rows valid, |p_i − p_j|² ≤ edge_gate2):
 
@@ -17,6 +21,11 @@ counts as masked, which is what the slab's sentinel fill does.  Every
 test is an exact min/or chain over identical f32 operations, so the
 CUDA kernel (``csrc/label_sweep.cu``) and :func:`label_sweep_reference`
 agree bit for bit.
+
+``seed_sweep`` (``csrc/seed_sweep.cu``) and ``refine_sweep``
+(``csrc/refine_sweep.cu``) take the same SoA inputs; see their
+docstrings.  Both are min/or chains over identical f32 operations, so
+kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ import torch
 
 from buildingsegment_tpu_torch import kernels
 
-__all__ = ["label_sweep", "label_sweep_reference"]
+__all__ = [
+    "label_sweep", "label_sweep_reference", "seed_sweep",
+    "seed_sweep_reference", "refine_sweep", "refine_sweep_reference",
+]
 
 _POS_FILL = -3e7
 
@@ -118,3 +130,117 @@ def label_sweep(
     if label.is_cuda:
         return kernels.label_sweep_cuda(*args, **kw)
     return label_sweep_reference(*args, **kw)
+
+
+def seed_sweep_reference(
+    pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos, signed=False,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`seed_sweep` (the XLA loop of
+    ``seg/region_grow.py`` window_seeds)."""
+    n = mask.shape[0]
+    cmag = (lambda x: x) if signed else torch.abs
+    px, py, pz = pos
+    nx, ny, nz = nrm
+    ppx, ppy, ppz = (_pad(a, w, _POS_FILL) for a in pos)
+    pnx, pny, pnz = (_pad(a, w, 0.0) for a in nrm)
+    pmask = _pad(mask, w, False)
+    bad = torch.zeros(n, dtype=torch.bool, device=mask.device)
+    for slot in range(2 * w):
+        start = slot if slot < w else slot + 1
+        sl = lambda a: a[start:start + n]
+        dx = sl(ppx) - px
+        dy = sl(ppy) - py
+        dz = sl(ppz) - pz
+        in_ball = (dx * dx + dy * dy + dz * dz <= dk) & sl(pmask) & mask
+        pd = torch.abs(dx * nx + dy * ny + dz * nz)
+        pc = cmag(sl(pnx) * nx + sl(pny) * ny + sl(pnz) * nz)
+        bad = bad | (in_ball & ~((pd <= th_thickness) & (pc >= th_normal_cos)))
+    return mask & ~bad
+
+
+def seed_sweep(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
+               signed=False) -> torch.Tensor:
+    """The depth-0 seed rule over ±w rows → bool[n] seeds.
+
+    Row i is a seed iff it is valid and no valid window candidate j with
+    |p_j − p_i|² ≤ dk_i fails |(p_j − p_i)·n_i| ≤ th and |n_j·n_i| ≥ cos.
+    ``pos``/``nrm`` are (x, y, z) triples of f32[n], ``mask`` bool[n],
+    ``dk`` f32[n] the squared k-th-NN ball.  CUDA tensors launch the
+    CUDA kernel, CPU tensors run :func:`seed_sweep_reference`.
+    """
+    args = (pos, nrm, mask, dk)
+    kw = dict(w=w, th_thickness=th_thickness, th_normal_cos=th_normal_cos,
+              signed=signed)
+    if mask.is_cuda:
+        return kernels.seed_sweep_cuda(*args, **kw)
+    return seed_sweep_reference(*args, **kw)
+
+
+def refine_sweep_reference(
+    pos, nrm, mask, pid, table, n_live, *, w, th_thickness, th_normal_cos,
+    edge_gate2, signed=False, clean=False, adopt=True,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`refine_sweep` (the XLA refine of
+    ``seg/coarse.py`` step 3, with the kernel's fused ``clean``)."""
+    n = mask.shape[0]
+    cmag = (lambda x: x) if signed else torch.abs
+    px, py, pz = pos
+    nx, ny, nz = nrm
+    ntab = min(kernels.ceil128(n_live), table.shape[0])
+    has = (pid > 0) & mask
+    t = torch.where(has & (pid <= ntab), pid - 1, 0).long()
+    m = torch.where((has & (pid <= ntab))[:, None], table[t], 0.0)
+    mnx, mny, mnz, mb = m[:, 0], m[:, 1], m[:, 2], m[:, 3]
+    eff = torch.where(has, pid, 0)
+    if clean:
+        d_self = torch.abs(px * mnx + py * mny + pz * mnz - mb)
+        c_self = cmag(nx * mnx + ny * mny + nz * mnz)
+        self_ok = (d_self <= th_thickness) & (c_self >= th_normal_cos)
+        eff = torch.where(self_ok, eff, 0)
+    if not adopt:
+        return eff
+    big = torch.iinfo(torch.int32).max
+    ppx, ppy, ppz = (_pad(a, w, _POS_FILL) for a in pos)
+    pmnx, pmny, pmnz, pmb = (_pad(a, w, 0.0) for a in (mnx, mny, mnz, mb))
+    peff = _pad(eff, w, 0)
+    best = torch.full_like(pid, big)
+    for slot in range(2 * w):
+        start = slot if slot < w else slot + 1
+        sl = lambda a: a[start:start + n]
+        dx = px - sl(ppx)
+        dy = py - sl(ppy)
+        dz = pz - sl(ppz)
+        near = dx * dx + dy * dy + dz * dz <= edge_gate2
+        cmnx, cmny, cmnz = sl(pmnx), sl(pmny), sl(pmnz)
+        d = torch.abs(px * cmnx + py * cmny + pz * cmnz - sl(pmb))
+        c = cmag(nx * cmnx + ny * cmny + nz * cmnz)
+        cpid = sl(peff)
+        ok = (cpid > 0) & near & mask & (d <= th_thickness) & (
+            c >= th_normal_cos)
+        best = torch.minimum(best, torch.where(ok, cpid, big))
+    return torch.where(eff > 0, eff, torch.where(best < big, best, 0))
+
+
+def refine_sweep(pos, nrm, mask, pid, table, n_live, *, w, th_thickness,
+                 th_normal_cos, edge_gate2, signed=False, clean=False,
+                 adopt=True) -> torch.Tensor:
+    """One refinement sweep against the [P] plane table → int32[n] plane
+    ids (0 = none).
+
+    ``pid`` int32[n] is each row's plane id (0 = none); ``table``
+    f32[P, 4] holds plane id p's unit normal and offset b = n·c in row
+    p − 1; only ids up to ceil128(n_live) read the table (the TPU
+    kernel's live chunks), others see a zero model.  A row keeps its id
+    if it is valid and — with ``clean`` — its own plane still accepts it
+    (|p·n − b| ≤ th and |n_i·n| ≥ cos); otherwise (with ``adopt``) it
+    takes the smallest kept id of a valid window candidate within the
+    edge gate whose plane accepts it.  ``clean`` applies to candidates
+    too.  CUDA tensors launch the CUDA kernel, CPU tensors run
+    :func:`refine_sweep_reference`.
+    """
+    args = (pos, nrm, mask, pid, table, n_live)
+    kw = dict(w=w, th_thickness=th_thickness, th_normal_cos=th_normal_cos,
+              edge_gate2=edge_gate2, signed=signed, clean=clean, adopt=adopt)
+    if mask.is_cuda:
+        return kernels.refine_sweep_cuda(*args, **kw)
+    return refine_sweep_reference(*args, **kw)

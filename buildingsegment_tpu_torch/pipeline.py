@@ -10,14 +10,17 @@ reference's ``main()`` (tmc3/TMC3.cpp:202-229):
     → per-plane random colors              set_plane_color, :218
     → write labeled binary PLY             ply::write, :221
 
-Host I/O at the edges (the JAX package's ``io`` and ``native`` modules,
-which import no jax), PyTorch on an explicit device in the middle.  The
-written cloud is the *shifted* one, as the reference's constructor
-mutates the caller's cloud in place.
+Host I/O at the edges (the port's numpy PLY codec), PyTorch on an
+explicit device in the middle.  The written cloud is the *shifted* one,
+as the reference's constructor mutates the caller's cloud in place.
 
-This slice covers ``knn_method="window"`` without the multigrid stats
-stage; every other configuration raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+The port covers ``knn_method="window"`` — what ``"auto"`` resolves to
+above 65,536 points — in both of its forms: with ``seg_group > 1``
+(the default, when the capacity is a multiple of
+``seg_group ** seg_levels``) the stats sweep feeds the multigrid solver,
+otherwise the fused kNN sweep feeds the single-level window solver.
+Every other configuration raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from buildingsegment_tpu.config import DEFAULT_CONFIG, PipelineConfig
-from buildingsegment_tpu.io.ply import HostPointCloud, read_ply, write_ply
+from buildingsegment_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from buildingsegment_tpu_torch.io.ply import HostPointCloud, read_ply, write_ply
 from buildingsegment_tpu_torch.core.morton import morton_sort, unsort_labels
 from buildingsegment_tpu_torch.core.pointset import PointBatch
 from buildingsegment_tpu_torch.core.quantize import (
@@ -40,6 +43,8 @@ from buildingsegment_tpu_torch.core.quantize import (
     spacing_bucket_mm,
 )
 from buildingsegment_tpu_torch.ops.fused import knn_normals_window_sorted
+from buildingsegment_tpu_torch.ops.stats_sweep import knn_normals_window_stats
+from buildingsegment_tpu_torch.seg.coarse import segment_planes_multigrid
 from buildingsegment_tpu_torch.seg.colorize import colorize_planes
 from buildingsegment_tpu_torch.seg.region_grow import segment_planes
 from buildingsegment_tpu_torch.utils.device import synchronize
@@ -97,14 +102,16 @@ def run_device_pipeline(
     convergence_tol: float = 0.0,
     seg_group: int = 1,
     seg_levels: int = 1,
+    seg_refine_sweeps: int = 2,
     seg_anchor_cos=None,
     seg_compact=None,
+    seg_seed_source=None,
     morton_small: bool = False,
     spacing_hint_mm=None,
     timings: Optional[dict] = None,
 ):
-    """The on-device part: shift → Morton sort → window kNN + normals →
-    segmentation → unsort.
+    """The on-device part: shift → Morton sort → window stats (kNN +
+    normals) → segmentation → unsort.
 
     Returns (shifted positions, bbox_min, SegmentationResult with
     ``plane_idx`` in input order).  ``timings``, when given, receives
@@ -116,21 +123,26 @@ def run_device_pipeline(
             "(ROADMAP.md: 'classic small-cloud path' for brute, the exact "
             "brute kNN kernel #14 for pallas)"
         )
-    if seg_group > 1 and positions.shape[0] % (seg_group ** seg_levels) == 0:
-        raise NotImplementedError(
-            "the multigrid solver (seg_group > 1 with the stats stage) is "
-            "a later slice of the port (ROADMAP.md: production stage 1 "
-            "and multigrid coarse.py)"
-        )
+    use_stats = (
+        seg_group > 1 and positions.shape[0] % (seg_group ** seg_levels) == 0
+    )
     timings = {} if timings is None else timings
     dev = positions.device
     t0 = time.perf_counter()
     shifted, lo, _hi = shift_to_origin(positions, mask)
     spos, smask, order = morton_sort(shifted, mask, morton_small)
-    neigh_idx, neigh_d, normals, curv = knn_normals_window_sorted(
-        spos.float(), smask, k=max(knn_k, 16), window=knn_window_size,
-        radius=normal_radius, max_nn=normal_max_nn,
-    )
+    if use_stats:
+        # the multigrid solver consumes only the k-th-NN distance (the
+        # seed ball), never the sorted neighbour lists
+        dk, normals, curv = knn_normals_window_stats(
+            spos.float(), smask, k=knn_k, window=knn_window_size,
+            radius=normal_radius, max_nn=normal_max_nn,
+        )
+    else:
+        neigh_idx, neigh_d, normals, curv = knn_normals_window_sorted(
+            spos.float(), smask, k=max(knn_k, 16), window=knn_window_size,
+            radius=normal_radius, max_nn=normal_max_nn,
+        )
     synchronize(dev)
     t1 = time.perf_counter()
     timings["stage1"] = t1 - t0
@@ -145,15 +157,22 @@ def run_device_pipeline(
         th_thickness=th_thickness, th_normal_cos=th_normal_cos,
         th_point_count=th_point_count, max_planes=max_planes,
         max_sweeps=max_sweeps, convergence_tol=convergence_tol,
-        signed_normals=signed_normals,
+        signed_normals=signed_normals, compact=seg_compact,
     )
     if seg_anchor_cos is not None:
         seg_kwargs["th_anchor_cos"] = seg_anchor_cos
-    seg = segment_planes(
-        spos, normals, neigh_idx[:, :knn_k], smask,
-        neigh_sq_dist=neigh_d[:, :knn_k], curvature=curv,
-        compact=seg_compact, **seg_kwargs,
-    )
+    if use_stats:
+        seg = segment_planes_multigrid(
+            spos, normals, smask, kth_sq_dist=dk, curvature=curv,
+            group=seg_group, levels=seg_levels,
+            refine_sweeps=seg_refine_sweeps, seed_source=seg_seed_source,
+            spacing_hint_mm=spacing_hint_mm, **seg_kwargs,
+        )
+    else:
+        seg = segment_planes(
+            spos, normals, neigh_idx[:, :knn_k], smask,
+            neigh_sq_dist=neigh_d[:, :knn_k], curvature=curv, **seg_kwargs,
+        )
     t2 = time.perf_counter()
     timings["segmentation"] = t2 - t1
     timings.update(seg.timings)
@@ -243,8 +262,10 @@ def segment_cloud(
         convergence_tol=config.seg_convergence_tol,
         seg_group=config.seg_group,
         seg_levels=config.seg_levels,
+        seg_refine_sweeps=config.seg_refine_sweeps,
         seg_anchor_cos=config.seg_anchor_cos,
         seg_compact=config.seg_compact,
+        seg_seed_source=config.seg_seed_source,
         morton_small=config.morton_small,
         spacing_hint_mm=config.spacing_hint_mm,
         timings=timings,

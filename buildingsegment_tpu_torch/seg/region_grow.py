@@ -22,8 +22,12 @@ pipeline uses).  JAX's ``lax.while_loop`` becomes a Python loop that reads the s
 change count (and the counters the loop conditions need) once per sweep:
 one host sync per sweep, counted in ``SegmentationResult.host_syncs``.
 
+The multigrid solver (``seg/coarse.py``) derives its seeds with
+:func:`window_seeds` (the same rule over ±window rows, on the seed-sweep
+kernel) and hands each level its seeds through ``seed_override``.
+
 Not ported yet (ROADMAP.md, later slices): ``propagation="graph"``,
-``axis_name`` sharding, ``seed_override`` / ``window_seeds``.
+``axis_name`` sharding.
 """
 
 from __future__ import annotations
@@ -38,10 +42,10 @@ import torch
 from buildingsegment_tpu_torch.ops.compact_sweep import COMPACT_L, compact_sweep
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
-from buildingsegment_tpu_torch.ops.window_sweep import label_sweep
+from buildingsegment_tpu_torch.ops.window_sweep import label_sweep, seed_sweep
 from buildingsegment_tpu_torch.utils.device import synchronize
 
-__all__ = ["segment_planes", "SegmentationResult"]
+__all__ = ["segment_planes", "SegmentationResult", "window_seeds"]
 
 #: jump-doubling rounds per sweep (the JAX package's default)
 JUMP_ROUNDS = 2
@@ -135,14 +139,42 @@ def _f32sq(x: float) -> float:
     return float(np.float32(x) * np.float32(x))
 
 
+def window_seeds(
+    positions: torch.Tensor,
+    normals: torch.Tensor,
+    mask: torch.Tensor,
+    kth_sq_dist: torch.Tensor,
+    *,
+    window: int = WINDOW,
+    th_thickness: float = 300.0,
+    th_normal_cos: float = 0.88,
+    signed_normals: bool = False,
+) -> torch.Tensor:
+    """Strict depth-0 seed rule over ±window sorted rows → bool[N].
+
+    The reference's rule ("every one of the k−1 nearest neighbors
+    passes the plane test", tmc3/my_function.cpp:238) on a Morton-sorted
+    cloud: row i is a seed iff no window candidate within its k-th-NN
+    radius (``kth_sq_dist``, squared) fails the test.
+    """
+    pos = tuple(positions[:, d].float().contiguous() for d in range(3))
+    nrm = tuple(normals[:, d].float().contiguous() for d in range(3))
+    return seed_sweep(
+        pos, nrm, mask, kth_sq_dist.float().contiguous(), w=window,
+        th_thickness=float(th_thickness), th_normal_cos=float(th_normal_cos),
+        signed=signed_normals,
+    )
+
+
 def segment_planes(
     positions: torch.Tensor,
     normals: torch.Tensor,
-    neigh_idx: torch.Tensor,
+    neigh_idx: Optional[torch.Tensor],
     mask: torch.Tensor,
     *,
     neigh_sq_dist: Optional[torch.Tensor] = None,
     max_edge_dist: Optional[float] = None,
+    seed_override: Optional[torch.Tensor] = None,
     curvature: Optional[torch.Tensor] = None,
     th_seed_curvature: Optional[float] = None,
     th_thickness: float = 300.0,
@@ -161,10 +193,12 @@ def segment_planes(
         positions: int32/float [N, 3] bbox-shifted, Morton-sorted.
         normals: float32[N, 3] unit normals.
         neigh_idx: int32[N, K] kNN graph (self at slot 0) — feeds the
-            seed rule.
+            seed rule; None with ``seed_override``.
         mask: bool[N] validity.
         neigh_sq_dist: float32[N, K] squared neighbor distances; with
             ``max_edge_dist`` they gate the seed graph's edges.
+        seed_override: bool[N] caller-supplied seeds in place of the
+            graph rule (the multigrid levels); ANDed with ``mask``.
         th_anchor_cos: anchor-pure model estimation — a member feeds its
             region's mean model only when its normal agrees with the
             region seed's normal by this cosine (≤ th_normal_cos
@@ -176,7 +210,7 @@ def segment_planes(
     """
     t_start = time.perf_counter()
     dev = positions.device
-    n, _k = neigh_idx.shape
+    n = positions.shape[0]
     pos = positions.float()
     nrm = normals.float()
     ng = n
@@ -187,19 +221,23 @@ def segment_planes(
     sns = nrm if signed_normals else canonicalize_normals(nrm)
     rows_ng = torch.arange(ng, dtype=torch.int32, device=dev)
 
-    # 1. seed gating over the kNN graph (depth-0 rule)
-    nb = neigh_idx[:, 1:].long()
-    nb_valid = mask[nb] & mask[:, None] & (nb != rows_ng.long()[:, None])
-    if neigh_sq_dist is not None and max_edge_dist is not None:
-        nb_valid = nb_valid & (neigh_sq_dist[:, 1:] <= _f32sq(max_edge_dist))
-    dv = pos[nb] - pos[:, None, :]
-    dist = torch.abs(_sum3(dv * nrm[:, None, :]))
-    cos = cmag(_sum3(nrm[nb] * nrm[:, None, :]))
-    fwd_ok = (dist <= th_thickness) & (cos >= th_normal_cos) & nb_valid
-    seed = fwd_ok.all(dim=1) & mask
+    # 1. seed gating over the kNN graph (depth-0 rule), or the caller's
+    if seed_override is not None:
+        seed = seed_override & mask
+    else:
+        nb = neigh_idx[:, 1:].long()
+        nb_valid = mask[nb] & mask[:, None] & (nb != rows_ng.long()[:, None])
+        if neigh_sq_dist is not None and max_edge_dist is not None:
+            nb_valid = nb_valid & (
+                neigh_sq_dist[:, 1:] <= _f32sq(max_edge_dist))
+        dv = pos[nb] - pos[:, None, :]
+        dist = torch.abs(_sum3(dv * nrm[:, None, :]))
+        cos = cmag(_sum3(nrm[nb] * nrm[:, None, :]))
+        fwd_ok = (dist <= th_thickness) & (cos >= th_normal_cos) & nb_valid
+        seed = fwd_ok.all(dim=1) & mask
+        del dv, dist, cos, fwd_ok, nb, nb_valid
     if curvature is not None and th_seed_curvature is not None:
         seed = seed & (curvature <= th_seed_curvature)
-    del dv, dist, cos, fwd_ok, nb, nb_valid
 
     # anchor table: row r holds the seed normal of label r for the whole
     # solve (purity gate of the model sums)

@@ -14,14 +14,28 @@ import torch
 
 from buildingsegment_tpu_torch import kernels
 from buildingsegment_tpu_torch.core.morton import morton_sort
+from buildingsegment_tpu_torch.ops.adopt import (
+    adopt_table,
+    plane_adopt_reference,
+)
 from buildingsegment_tpu_torch.ops.compact_sweep import (
     COMPACT_L,
     compact_sweep_reference,
 )
 from buildingsegment_tpu_torch.ops.fused import knn_normals_window_sorted
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
-from buildingsegment_tpu_torch.ops.window_sweep import label_sweep_reference
+from buildingsegment_tpu_torch.ops.segsum import (
+    payload_moment_sums_reference,
+    table_lookup_reference,
+)
+from buildingsegment_tpu_torch.ops.stats_sweep import stats_sweep_reference
+from buildingsegment_tpu_torch.ops.window_sweep import (
+    label_sweep_reference,
+    refine_sweep_reference,
+    seed_sweep_reference,
+)
 from buildingsegment_tpu_torch.pipeline import (
+    DEFAULT_CONFIG,
     HostPointCloud,
     PipelineConfig,
     segment_cloud,
@@ -126,15 +140,149 @@ def test_kernel_wrappers_reject_bad_inputs(scene):
                                  edge_gate2=1.0, inf_label=n)
 
 
-def test_segment_cloud_card_matches_cpu(cuda):
+_SLICE1 = ("label_sweep", "compact_sweep")
+_MULTIGRID = ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
+              "payload_moment_sums", "table_lookup", "plane_adopt")
+
+
+@pytest.mark.parametrize(
+    "cfg,launched",
+    [
+        (PipelineConfig(knn_method="window", seg_group=1,
+                        pad_to_multiple=2048), _SLICE1),
+        (PipelineConfig(knn_method="window"), _MULTIGRID),
+    ],
+    ids=["single_level", "default_multigrid"],
+)
+def test_segment_cloud_card_matches_cpu(cuda, cfg, launched):
     pts, truth = make_building_cloud(**_SCENE)
-    cfg = PipelineConfig(knn_method="window", seg_group=1,
-                         pad_to_multiple=2048)
     kernels.reset_launch_counts()
     a = segment_cloud(HostPointCloud(positions=pts), cfg, device="cuda")
-    assert all(v > 0 for v in kernels.launch_counts.values())
+    assert all(kernels.launch_counts[k] > 0 for k in launched), \
+        kernels.launch_counts
     b = segment_cloud(HostPointCloud(positions=pts), cfg, device="cpu")
     assert a.num_planes == b.num_planes
     assert bij_agreement(a.plane_idx, b.plane_idx) >= 0.99
     assert abs(bij_agreement(truth, a.plane_idx)
                - bij_agreement(truth, b.plane_idx)) < 0.01
+
+
+def _cols(t):
+    return tuple(t[:, d].contiguous() for d in range(3))
+
+
+@pytest.mark.parametrize("radius,max_nn", [(300.0, 50), (100.0, 50),
+                                           (1e6, None)])
+def test_stats_sweep_kernel_matches_plain(scene, radius, max_nn):
+    pos, _nrm, mask = scene
+    kw = dict(k=15, w=48, radius=radius, max_nn=max_nn)
+    got = kernels.stats_sweep_cuda(_cols(pos), mask, **kw)
+    ref = stats_sweep_reference(_cols(pos), mask, **kw)
+    assert (got[0] > 0).sum() > 1000
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_seed_sweep_kernel_matches_plain(scene, signed):
+    pos, nrm, mask = scene
+    dk = stats_sweep_reference(_cols(pos), mask, k=15, w=48, radius=100.0,
+                               max_nn=50)[0]
+    kw = dict(w=16, th_thickness=TH, th_normal_cos=CTH, signed=signed)
+    got = kernels.seed_sweep_cuda(_cols(pos), _cols(nrm), mask, dk, **kw)
+    ref = seed_sweep_reference(_cols(pos), _cols(nrm), mask, dk, **kw)
+    assert got.sum() > 100 and (mask & ~got).sum() > 100
+    assert torch.equal(got, ref)
+
+
+def _plane_problem(pos, nrm, mask, seed):
+    """Plane ids by row blocks (some dropped) and their fitted table."""
+    n = mask.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = torch.arange(n, device=pos.device)
+    pid = (rows // 300 % 9 + 1).to(torch.int32)
+    drop = torch.rand(n, generator=g).to(pos.device) < 0.3
+    pid = torch.where(drop | ~mask, 0, pid).to(torch.int32)
+    p = 64
+    cnt = torch.zeros(p, device=pos.device).index_add_(
+        0, pid.long(), torch.ones(n, device=pos.device))
+    sn = torch.zeros((p, 3), device=pos.device).index_add_(
+        0, pid.long(), canonicalize_normals(nrm))
+    sc = torch.zeros((p, 3), device=pos.device).index_add_(0, pid.long(), pos)
+    pn = sn[1:] / sn[1:].norm(dim=1, keepdim=True).clamp_min(1e-9)
+    pc = sc[1:] / cnt[1:, None].clamp_min(1.0)
+    pn = torch.nan_to_num(pn)
+    table = torch.stack([pn[:, 0], pn[:, 1], pn[:, 2],
+                         (pn * pc).sum(1)], 1).contiguous()
+    return pid, table, pc.contiguous()
+
+
+@pytest.mark.parametrize("clean", [True, False])
+def test_refine_sweep_kernel_matches_plain(scene, clean):
+    pos, nrm, mask = scene
+    pid, table, _ = _plane_problem(pos, nrm, mask, 5)
+    kw = dict(w=16, th_thickness=TH, th_normal_cos=CTH, edge_gate2=EDGE ** 2,
+              clean=clean, adopt=True)
+    args = (_cols(pos), _cols(nrm), mask, pid, table, 9)
+    got = kernels.refine_sweep_cuda(*args, **kw)
+    ref = refine_sweep_reference(*args, **kw)
+    assert (got != pid).sum() > 100
+    assert torch.equal(got, ref)
+
+
+def test_payload_moment_sums_kernel_matches_plain(scene):
+    pos, nrm, mask = scene
+    pid, _table, pc = _plane_problem(pos, nrm, mask, 6)
+    n = mask.shape[0]
+    ids = torch.where(pid > 0, pid - 1, 4096).to(torch.int32)
+    sq = (pos * pos).sum(1, keepdim=True)
+    payload = torch.cat([torch.ones((n, 1), device=pos.device),
+                         canonicalize_normals(nrm), pos, sq], 1).contiguous()
+    got = kernels.payload_moment_sums_cuda(ids, payload, pc, 9,
+                                           table_cap=4096)
+    ref = payload_moment_sums_reference(ids, payload, pc, 9, table_cap=4096)
+    assert int(got[0][:, 0].sum()) == int((pid > 0).sum())
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_table_lookup_kernel_matches_plain(cuda):
+    g = torch.Generator(device="cpu").manual_seed(8)
+    ids = torch.randint(-3, 700, (50_000,), generator=g, dtype=torch.int32)
+    lut = torch.randint(0, 500, (600,), generator=g, dtype=torch.int32)
+    for n_live in (130, 600, 5000):
+        got = kernels.table_lookup_cuda(ids.to(cuda), lut.to(cuda), n_live)
+        ref = table_lookup_reference(ids, lut, n_live)
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_plane_adopt_kernel_matches_plain(cuda, signed):
+    rng = np.random.default_rng(3)
+    n, k = 20_000, 96
+    nk = rng.normal(size=(k, 3)).astype(np.float32)
+    nk /= np.linalg.norm(nk, axis=1, keepdims=True)
+    ck = rng.uniform(0, 30_000, size=(k, 3)).astype(np.float32)
+    t = rng.integers(0, k, size=n)
+    along = rng.normal(size=(n, 3)).astype(np.float32) * 800
+    pos = ck[t] + along - np.sum(along * nk[t], 1, keepdims=True) * nk[t]
+    pos = (pos + rng.normal(size=n)[:, None] * 250 * nk[t]).astype(np.float32)
+    cn = nk[t] + rng.normal(size=(n, 3)).astype(np.float32) * 0.2
+    cn /= np.linalg.norm(cn, axis=1, keepdims=True)
+    holes = rng.uniform(size=n) < 0.6
+    holes[5000:9000] = False  # whole blocks without holes
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    pos_t, nk_t, ck_t = T(pos), T(nk), T(ck)
+    payload = torch.cat([torch.ones((n, 1), device=cuda), T(cn), pos_t,
+                         (pos_t * pos_t).sum(1, keepdim=True)], 1)
+    reach2 = T(rng.uniform(500, 4000, size=k).astype(np.float32) ** 2)
+    table = adopt_table(nk_t, ck_t, (nk_t * ck_t).sum(1),
+                        (ck_t * ck_t).sum(1), reach2,
+                        T(rng.uniform(size=k) < 0.8))
+    rows = T(rng.permutation(1024)[:128].astype(np.int32))
+    kw = dict(th_thickness=TH, th_cos=CTH, signed=signed)
+    got = kernels.plane_adopt_cuda(payload, T(holes), table, rows, **kw)
+    ref = plane_adopt_reference(payload, T(holes), table, rows, **kw)
+    assert got[0].sum() > 1000
+    for g_, r in zip(got, ref):
+        assert torch.equal(g_, r)

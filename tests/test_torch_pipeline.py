@@ -1,11 +1,13 @@
-"""The port's slice end to end against the JAX package, and the import
-boundary.
+"""The port's window path end to end against the JAX package, and the
+import boundary.
 
-``segment_cloud`` with ``knn_method="window"`` and ``seg_group=1`` on
-both packages (CPU): the contract of tests/test_forced_tpu_path.py —
-the same plane count, cross agreement ≥ 0.99 and truth agreement within
-0.01.  ``segment_file`` round-trips a binary PLY.  Configurations the
-slice does not cover raise NotImplementedError.
+``segment_cloud`` with ``knn_method="window"`` on both packages (CPU),
+single-level (``seg_group=1``) and multigrid (the default
+``seg_group=4``, ``seg_levels=2``): the contract of
+tests/test_forced_tpu_path.py — the same plane count, cross agreement
+≥ 0.99 and truth agreement within 0.01.  ``segment_file`` round-trips a
+binary PLY.  Configurations the port does not cover yet raise
+NotImplementedError.
 """
 
 import os
@@ -15,11 +17,13 @@ import sys
 import numpy as np
 import pytest
 
-from buildingsegment_tpu.config import PipelineConfig
-from buildingsegment_tpu.io.ply import HostPointCloud, read_ply, write_ply
+from buildingsegment_tpu.config import PipelineConfig as JaxPipelineConfig
+from buildingsegment_tpu.io.ply import HostPointCloud as JaxHostPointCloud
 from buildingsegment_tpu.pipeline import segment_cloud as jax_segment_cloud
 from buildingsegment_tpu.utils.quality import bij_agreement
 from buildingsegment_tpu.utils.synthetic import make_building_cloud
+from buildingsegment_tpu_torch.config import PipelineConfig
+from buildingsegment_tpu_torch.io.ply import HostPointCloud, read_ply, write_ply
 from buildingsegment_tpu_torch.pipeline import (
     segment_cloud,
     segment_file,
@@ -27,8 +31,11 @@ from buildingsegment_tpu_torch.pipeline import (
 )
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CFG = PipelineConfig(knn_method="window", seg_group=1,
-                      pad_to_multiple=2048)
+_SINGLE = dict(knn_method="window", seg_group=1, pad_to_multiple=2048)
+# the default configuration, with the window path forced on a scene below
+# the 65,536-point "auto" threshold
+_MULTIGRID = dict(knn_method="window")
+_CFG = PipelineConfig(**_SINGLE)
 
 
 @pytest.fixture(scope="module")
@@ -39,10 +46,14 @@ def scene():
     )
 
 
-def test_segment_cloud_matches_jax(scene):
+@pytest.mark.parametrize("cfg", [_SINGLE, _MULTIGRID],
+                         ids=["single_level", "multigrid"])
+def test_segment_cloud_matches_jax(scene, cfg):
     pts, truth = scene
-    a = jax_segment_cloud(HostPointCloud(positions=pts), _CFG)
-    b = segment_cloud(HostPointCloud(positions=pts), _CFG, device="cpu")
+    a = jax_segment_cloud(JaxHostPointCloud(positions=pts),
+                          JaxPipelineConfig(**cfg))
+    b = segment_cloud(HostPointCloud(positions=pts), PipelineConfig(**cfg),
+                      device="cpu")
     assert b.num_planes == a.num_planes >= 5
     assert b.num_sweeps > 0
     assert bij_agreement(a.plane_idx, b.plane_idx) >= 0.99
@@ -80,13 +91,26 @@ def test_segment_file_round_trip(scene, tmp_path):
     [
         PipelineConfig(knn_method="brute"),
         PipelineConfig(knn_method="pallas"),
-        PipelineConfig(knn_method="window", seg_group=4, seg_levels=2),
     ],
 )
 def test_uncovered_configs_raise(scene, cfg):
     pts, _ = scene
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         segment_cloud(HostPointCloud(positions=pts), cfg, device="cpu")
+
+
+def test_multigrid_config_runs(scene):
+    """The multigrid configuration (seg_group=4, seg_levels=2), which the
+    first slice refused, runs and labels the scene's planes."""
+    pts, truth = scene
+    out = segment_cloud(
+        HostPointCloud(positions=pts),
+        PipelineConfig(knn_method="window", seg_group=4, seg_levels=2),
+        device="cpu",
+    )
+    assert out.num_planes >= 5
+    assert "mg_finalize" in out.timings and "stage1" in out.timings
+    assert bij_agreement(truth, out.plane_idx) > 0.5
 
 
 def test_multiscan_raises():
@@ -96,13 +120,15 @@ def test_multiscan_raises():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without pulling in jax (the
-    machine with the card has none)."""
+    machine with the card has none) or any module of the JAX package
+    (the port keeps its own copies of the host modules)."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import buildingsegment_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'jax')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'buildingsegment_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
