@@ -1,9 +1,9 @@
 """buildingsegment_tpu_torch — the PyTorch/CUDA port of buildingsegment_tpu.
 
 The JAX package ``buildingsegment_tpu`` stays the reference; this package
-re-implements its window segmentation path in PyTorch, with the Pallas
-kernels of that path rewritten by hand in CUDA C++ for Hopper
-(``csrc/``).  Module names follow the JAX package so each module's
+re-implements its segmentation paths (window, multigrid, exact kNN) in
+PyTorch, with the Pallas kernels of those paths rewritten by hand in
+CUDA C++ for Hopper (``csrc/``).  Module names follow the JAX package so each module's
 counterpart is easy to find.
 
 Every function takes its tensors on an explicit device.  The kernel path
@@ -17,6 +17,7 @@ modules it needs (``config``, ``io.ply``, ``utils.synthetic``,
 Public entry points:
     - :mod:`buildingsegment_tpu_torch.pipeline` — ``segment_cloud`` /
       ``segment_file``
+    - :mod:`buildingsegment_tpu_torch.cli` — the command line
 """
 
 from buildingsegment_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig

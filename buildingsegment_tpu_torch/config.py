@@ -2,9 +2,11 @@
 
 The fields and defaults are the JAX package's, so one configuration
 means the same run in both packages.  Fields that select a TPU kernel
-variant (``knn_k_pad``, ``stats_rank_mode``, ``stats_store_offsets``,
-``stats_sym``, ``seg_seed_mode``) are kept for that equality; the
-port has one kernel per stage and does not read them.
+variant (``stats_rank_mode``, ``stats_store_offsets``, ``stats_sym``,
+``seg_seed_mode``) are kept for that equality; the port has one kernel
+per stage and does not read them.  ``knn_k_pad`` is read as the JAX
+package reads it: the exact-kNN paths search
+``max(knn_k_pad, normal_max_nn)`` neighbours.
 
 Every hard-coded constant of the reference binary becomes a field here,
 with the reference's value as the default so the default-configured
@@ -48,7 +50,8 @@ class PipelineConfig:
     # --- kNN graph ---
     knn_k: int = 15                 # includes self at slot 0
     # Padded k for TPU-friendly shapes (lane-sized multiples); slots
-    # beyond knn_k are masked out.
+    # beyond knn_k are masked out.  The exact-kNN paths search
+    # max(knn_k_pad, normal_max_nn) neighbours.
     knn_k_pad: int = 16
     # "auto": Morton-window search above knn_auto_threshold points,
     # exact brute force below; "brute" / "window" force a method.

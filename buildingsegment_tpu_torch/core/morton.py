@@ -16,6 +16,7 @@ import torch
 __all__ = [
     "morton_encode",
     "morton_decode",
+    "morton_argsort",
     "morton_sort",
     "unsort_labels",
     "WORD_BITS",
@@ -73,6 +74,21 @@ def morton_decode(code: torch.Tensor) -> torch.Tensor:
 
 def _stable_order(key: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, stable=True).indices
+
+
+def morton_argsort(positions: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Stable argsort int64[N] by the 60-bit Morton code; padded rows
+    sort last.
+
+    Each axis is clipped to 20 bits (``clip(p, 0, 2^20 − 1)``) and there
+    is no residual word, unlike :func:`morton_sort`; JAX's two stable
+    passes (low word, then high word) are one stable sort on
+    ``hi << 30 | lo`` with ``hi`` of padding rows at 0x7FFFFFFF.
+    """
+    pos = torch.clamp(positions, 0, (1 << TOTAL_BITS) - 1)
+    lo = morton_encode(pos, shift=0)
+    hi = torch.where(mask, morton_encode(pos, shift=WORD_BITS), _BIG)
+    return _stable_order((hi.to(torch.int64) << 30) | lo.to(torch.int64))
 
 
 def morton_sort(

@@ -36,7 +36,7 @@ class PointBatch:
     def upload(
         positions: np.ndarray,
         capacity: Optional[int] = None,
-        device="cpu",
+        device="cuda",
     ) -> "PointBatch":
         """Pad host int32[N, 3] positions to ``capacity`` rows and copy
         them to ``device``."""

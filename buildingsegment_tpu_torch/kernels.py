@@ -42,6 +42,7 @@ __all__ = [
     "payload_moment_sums_cuda",
     "table_lookup_cuda",
     "plane_adopt_cuda",
+    "knn_exact_cuda",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,7 +50,7 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 _SOURCES = (
     "label_sweep.cu", "compact_sweep.cu", "stats_sweep.cu", "seed_sweep.cu",
-    "refine_sweep.cu", "segsum.cu", "adopt.cu",
+    "refine_sweep.cu", "segsum.cu", "adopt.cu", "knn_exact.cu",
 )
 _HEADERS = ("sweep_common.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -61,7 +62,7 @@ _NVCC_FLAGS = (
 launch_counts = {
     "label_sweep": 0, "compact_sweep": 0, "stats_sweep": 0,
     "seed_sweep": 0, "refine_sweep": 0, "payload_moment_sums": 0,
-    "table_lookup": 0, "plane_adopt": 0,
+    "table_lookup": 0, "plane_adopt": 0, "knn_exact": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -160,8 +161,10 @@ def _load() -> ctypes.CDLL:
     lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
     lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
     lib.bst_adopt.argtypes = [_P] * 8 + [_I, _F, _F, _I, _P]
+    lib.bst_knn_exact.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     for fn in (lib.bst_stats_sweep, lib.bst_seed_sweep, lib.bst_refine_sweep,
-               lib.bst_paymom, lib.bst_lookup, lib.bst_adopt):
+               lib.bst_paymom, lib.bst_lookup, lib.bst_adopt,
+               lib.bst_knn_exact):
         fn.restype = _I
     _lib = lib
     return lib
@@ -444,3 +447,38 @@ def plane_adopt_cuda(payload, holes, table, rows, *, th_thickness, th_cos,
     _check(lib, err, "plane_adopt")
     launch_counts["plane_adopt"] += 1
     return adopted, row, acc
+
+
+#: largest query and candidate tiles of csrc/knn_exact.cu
+KNN_MAX_QT = 128
+KNN_MAX_CT = 1024
+
+
+def knn_exact_cuda(pos, seed_d, seed_i, visit, visit_d2, counts, *, qt, ct,
+                   w_excl):
+    """CUDA exact kNN scan (csrc/knn_exact.cu); see
+    :func:`buildingsegment_tpu_torch.ops.pallas_knn.knn_exact`."""
+    n, kk = seed_d.shape
+    if not (0 < qt <= KNN_MAX_QT and 0 < ct <= KNN_MAX_CT and n % qt == 0
+            and n % ct == 0 and kk >= 1):
+        raise ValueError(f"knn_exact: N={n} with query tile {qt}, candidate "
+                         f"tile {ct}, k-1={kk} is not a supported shape")
+    comps = [_f32(t, n, "pos") for t in pos]
+    seed_d = _cuda_tensor(seed_d, torch.float32, (n, kk), "seed_d")
+    seed_i = _cuda_tensor(seed_i, torch.int32, (n, kk), "seed_i")
+    tiles = (n // qt, n // ct)
+    visit = _cuda_tensor(visit, torch.int32, tiles, "visit")
+    visit_d2 = _cuda_tensor(visit_d2, torch.float32, tiles, "visit_d2")
+    counts = _cuda_tensor(counts, torch.int32, (n // qt,), "counts")
+    out_d = torch.empty_like(seed_d)
+    out_i = torch.empty_like(seed_i)
+    lib = _load()
+    err = lib.bst_knn_exact(
+        *[t.data_ptr() for t in comps], seed_d.data_ptr(), seed_i.data_ptr(),
+        visit.data_ptr(), visit_d2.data_ptr(), counts.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), n, kk, qt, ct, int(w_excl),
+        _stream(out_d),
+    )
+    _check(lib, err, "knn_exact")
+    launch_counts["knn_exact"] += 1
+    return out_d, out_i

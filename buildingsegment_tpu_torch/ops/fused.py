@@ -24,7 +24,10 @@ import torch
 
 from buildingsegment_tpu_torch.ops.normals import eigh3x3_smallest
 
-__all__ = ["knn_normals_window_sorted", "window_moments", "finish_normals"]
+__all__ = [
+    "knn_normals_window_sorted", "window_moments", "window_neighbors",
+    "finish_normals",
+]
 
 _PAD = -3e7
 # rows per tile: bounds the [T, 2W] candidate blocks (every result is
@@ -178,15 +181,25 @@ def knn_normals_window_sorted(
             ``radius``.  None, or a cap wider than the window, keeps
             every in-radius candidate.
     """
-    n = spos.shape[0]
     if 2 * window < k - 1:
         raise ValueError(f"window {window} too small for k={k}")
-    dev = spos.device
     nb_d, arg, s0, s1, s2 = window_moments(
         spos, smask, window=window, radius=radius, max_nn=max_nn, keep=k - 1
     )
+    nb_i, nb_d = window_neighbors(nb_d, arg, smask, window)
+    v, curvature = finish_normals(s0, s1, s2, orient_z=orient_z)
+    return nb_i, nb_d, v, curvature
 
-    # kNN finish: slot → row offset, self at slot 0, invalid → self
+
+def window_neighbors(nb_d, arg, smask, window: int):
+    """kNN finish of a window ranking: slot → row offset, self at slot 0,
+    empty (+inf) slots and masked rows → self with distance 0.
+
+    Returns (neigh_idx int32[N, k], neigh_sq_dist f32[N, k]) for the
+    ascending distances ``nb_d`` f32[N, k−1] and their slots ``arg``.
+    """
+    n = nb_d.shape[0]
+    dev = nb_d.device
     offs = torch.where(arg < window, arg - window, arg - window + 1)
     rows = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
     nb_i = rows + offs
@@ -197,6 +210,4 @@ def knn_normals_window_sorted(
     nb_d = torch.cat([torch.zeros((n, 1), dtype=torch.float32, device=dev), nb_d], 1)
     nb_i = torch.where(smask[:, None], nb_i, rows).to(torch.int32)
     nb_d = torch.where(smask[:, None], nb_d, 0.0)
-
-    v, curvature = finish_normals(s0, s1, s2, orient_z=orient_z)
-    return nb_i, nb_d, v, curvature
+    return nb_i, nb_d

@@ -14,13 +14,20 @@ Host I/O at the edges (the port's numpy PLY codec), PyTorch on an
 explicit device in the middle.  The written cloud is the *shifted* one,
 as the reference's constructor mutates the caller's cloud in place.
 
-The port covers ``knn_method="window"`` — what ``"auto"`` resolves to
-above 65,536 points — in both of its forms: with ``seg_group > 1``
-(the default, when the capacity is a multiple of
-``seg_group ** seg_levels``) the stats sweep feeds the multigrid solver,
-otherwise the fused kNN sweep feeds the single-level window solver.
-Every other configuration raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+Every ``knn_method`` runs:
+
+* ``"window"`` — what ``"auto"`` resolves to above 65,536 points — in
+  both of its forms: with ``seg_group > 1`` (the default, when the
+  capacity is a multiple of ``seg_group ** seg_levels``) the stats sweep
+  feeds the multigrid solver, otherwise the fused kNN sweep feeds the
+  single-level window solver;
+* ``"brute"`` — what ``"auto"`` resolves to at 65,536 points or fewer —
+  and ``"pallas"``: the exact-kNN path (:func:`_classic_pipeline`),
+  exact kNN graph → gather normals → graph propagation, in the input
+  order; "pallas" computes the kNN on kernel #14.
+
+``segment_files`` (multi-scan with the ortho render) raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,7 +41,11 @@ import torch
 
 from buildingsegment_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from buildingsegment_tpu_torch.io.ply import HostPointCloud, read_ply, write_ply
-from buildingsegment_tpu_torch.core.morton import morton_sort, unsort_labels
+from buildingsegment_tpu_torch.core.morton import (
+    morton_argsort,
+    morton_sort,
+    unsort_labels,
+)
 from buildingsegment_tpu_torch.core.pointset import PointBatch
 from buildingsegment_tpu_torch.core.quantize import (
     dedup_keep_mask,
@@ -43,6 +54,9 @@ from buildingsegment_tpu_torch.core.quantize import (
     spacing_bucket_mm,
 )
 from buildingsegment_tpu_torch.ops.fused import knn_normals_window_sorted
+from buildingsegment_tpu_torch.ops.knn import knn
+from buildingsegment_tpu_torch.ops.normals import estimate_normals
+from buildingsegment_tpu_torch.ops.pallas_knn import knn_pallas
 from buildingsegment_tpu_torch.ops.stats_sweep import knn_normals_window_stats
 from buildingsegment_tpu_torch.seg.coarse import segment_planes_multigrid
 from buildingsegment_tpu_torch.seg.colorize import colorize_planes
@@ -87,6 +101,7 @@ def run_device_pipeline(
     positions: torch.Tensor,
     mask: torch.Tensor,
     *,
+    k_search: int,
     knn_k: int,
     normal_radius: float,
     normal_max_nn: int,
@@ -110,23 +125,30 @@ def run_device_pipeline(
     spacing_hint_mm=None,
     timings: Optional[dict] = None,
 ):
-    """The on-device part: shift → Morton sort → window stats (kNN +
-    normals) → segmentation → unsort.
+    """The on-device part: shift → kNN → normals → segmentation.
 
-    Returns (shifted positions, bbox_min, SegmentationResult with
-    ``plane_idx`` in input order).  ``timings``, when given, receives
-    per-stage seconds (each stage ends in a device synchronize).
+    ``k_search`` is the kNN width of the exact-kNN paths ("brute",
+    "pallas"); the window path reads ``knn_k``.  Returns (shifted
+    positions, bbox_min, SegmentationResult with ``plane_idx`` in input
+    order).  ``timings``, when given, receives per-stage seconds (each
+    stage ends in a device synchronize).
     """
-    if knn_method != "window":
-        raise NotImplementedError(
-            f"knn_method={knn_method!r} is a later slice of the port "
-            "(ROADMAP.md: 'classic small-cloud path' for brute, the exact "
-            "brute kNN kernel #14 for pallas)"
+    timings = {} if timings is None else timings
+    if knn_method in ("brute", "pallas"):
+        return _classic_pipeline(
+            positions, mask, k_search=k_search, knn_k=knn_k,
+            normal_radius=normal_radius, normal_max_nn=normal_max_nn,
+            th_thickness=th_thickness, th_normal_cos=th_normal_cos,
+            th_point_count=th_point_count, max_planes=max_planes,
+            max_sweeps=max_sweeps, signed_normals=signed_normals,
+            knn_method=knn_method, th_seed_curvature=th_seed_curvature,
+            convergence_tol=convergence_tol, timings=timings,
         )
+    if knn_method != "window":
+        raise ValueError(f"knn_method={knn_method!r}")
     use_stats = (
         seg_group > 1 and positions.shape[0] % (seg_group ** seg_levels) == 0
     )
-    timings = {} if timings is None else timings
     dev = positions.device
     t0 = time.perf_counter()
     shifted, lo, _hi = shift_to_origin(positions, mask)
@@ -180,6 +202,53 @@ def run_device_pipeline(
     synchronize(dev)
     timings["unsort"] = time.perf_counter() - t2
     return shifted, lo, dataclasses.replace(seg, plane_idx=plane_idx)
+
+
+def _classic_pipeline(
+    positions, mask, *, k_search, knn_k, normal_radius, normal_max_nn,
+    th_thickness, th_normal_cos, th_point_count, max_planes, max_sweeps,
+    signed_normals, knn_method, th_seed_curvature, convergence_tol, timings,
+):
+    """The exact-kNN paths ("brute", "pallas"): shift → exact kNN graph
+    (k_search wide) → gather normals → graph propagation over the first
+    ``knn_k`` slots, all in the input order."""
+    dev = positions.device
+    t0 = time.perf_counter()
+    shifted, lo, _hi = shift_to_origin(positions, mask)
+    if knn_method == "pallas":
+        # Morton-sort first so the candidate tiles are spatially coherent
+        # and the box pruning bites; ids map back through ``order`` and
+        # the rows scatter into the input frame
+        order = morton_argsort(shifted, mask)
+        s_idx, s_d = knn_pallas(shifted[order], mask[order], k=k_search)
+        neigh_idx = torch.empty_like(s_idx)
+        neigh_d = torch.empty_like(s_d)
+        neigh_idx[order] = order[s_idx.long()].to(torch.int32)
+        neigh_d[order] = s_d
+    else:
+        neigh_idx, neigh_d = knn(shifted, mask, k=k_search)
+    synchronize(dev)
+    t1 = time.perf_counter()
+    timings["knn"] = t1 - t0
+    normals, curv = estimate_normals(
+        shifted, mask, neigh_idx, neigh_d, radius=normal_radius,
+        max_nn=normal_max_nn,
+    )
+    synchronize(dev)
+    t2 = time.perf_counter()
+    timings["normals"] = t2 - t1
+    timings["stage1"] = t2 - t0
+    seg = segment_planes(
+        shifted, normals, neigh_idx[:, :knn_k], mask, curvature=curv,
+        th_seed_curvature=th_seed_curvature, th_thickness=th_thickness,
+        th_normal_cos=th_normal_cos, th_point_count=th_point_count,
+        max_planes=max_planes, max_sweeps=max_sweeps,
+        convergence_tol=convergence_tol, signed_normals=signed_normals,
+        propagation="graph",
+    )
+    timings["segmentation"] = time.perf_counter() - t2
+    timings.update(seg.timings)
+    return shifted, lo, seg
 
 
 def _maybe_dedup(cloud: HostPointCloud, config: PipelineConfig):
@@ -247,6 +316,7 @@ def segment_cloud(
 
     _shifted, _lo, seg = run_device_pipeline(
         batch.positions, batch.mask,
+        k_search=max(config.knn_k_pad, config.normal_max_nn),
         knn_k=config.knn_k,
         normal_radius=config.normal_radius,
         normal_max_nn=config.normal_max_nn,

@@ -13,25 +13,41 @@ Phases, in order; the first failure exits non-zero:
 3. drive ``segment_file`` once on the slice's scene (222,828 points,
    capacity 223,232) under ``DEFAULT_CONFIG`` (the multigrid path:
    stats sweep, fine seeds, two coarsening levels, window solve with the
-   compact loop, refine, finalize) and once under the single-level
-   configuration ``seg_group=1``, recording the inputs each path hands
-   to every kernel wrapper;
-4. hold each of the eight kernels against its plain PyTorch version on
+   compact loop, refine, finalize), once under the single-level
+   configuration ``seg_group=1`` and once under ``knn_method="pallas"``
+   (the exact-kNN path: kernel #14, gather normals, graph propagation),
+   recording the inputs each path hands to every kernel wrapper;
+4. hold each of the nine kernels against its plain PyTorch version on
    the inputs of every call the paths made — all must match bit for
    bit — and time both with CUDA events at the largest call, beside the
    kernel's bound (the bytes the function must move over 3.35 TB/s or
    the f32 operations it needs over 67 TFLOP/s, the H100 SXM's
-   published peaks, counted from this run's data);
-5. small-input check: both configurations on a 9k-point scene on the
-   card and on the CPU (plain versions) — same plane count, cross
-   agreement ≥ 0.99;
+   published peaks, counted from this run's data) and, for #14, one
+   library call at the same shape (``torch.cdist`` + ``torch.topk``
+   over 4,096-query blocks: the expansion form, inexact, timing only);
+5. small-input check: the window configurations and the exact-kNN
+   methods "brute" and "pallas" on a 9k-point scene on the card and on
+   the CPU (plain versions) — same plane count, cross agreement ≥ 0.99;
 6. the measured runs: for each path, launch counts reset, ``segment_file``
    on the slice's scene, counts read; every kernel of the path must have
    launched; the output PLY is re-read and checked; the default path
    gives 7 planes at truth agreement ≥ 0.9723 (the JAX package's
    0.982314 on this scene on the CPU, − 0.01), the single-level path
-   8 planes at ≥ 0.9633 (0.9733 − 0.01).  Three more default-path runs
-   give the stage times.
+   8 planes at ≥ 0.9633 (0.9733 − 0.01), the pallas path 7 planes at
+   ≥ 0.9853 (the JAX package's exact-kNN result, 0.995279 with "brute"
+   on the CPU, − 0.01).  Three more runs of the default and the pallas
+   paths give their stage times;
+7. ``DEFAULT_CONFIG`` on the same house at 105 mm spacing (60,914
+   points): "auto" must resolve to "brute" and give 18 planes at truth
+   agreement ≥ 0.6239 (JAX on the CPU: 0.633894 − 0.01), plus three
+   runs of stage times;
+8. the BASELINE config-2 shape: ``knn_pallas(k=16)`` on the house at
+   25.4 mm spacing (1,046,391 points, capacity 1,046,528), Morton-sorted;
+   the whole call and the kernel are timed, and 32 sampled query tiles
+   are held bit for bit against the plain version computed for those
+   queries only (the whole plain run is O(N²));
+9. the CLI once, as a subprocess: ``-a=scene.ply -s=out.ply --knn-method
+   pallas --json-summary`` must exit 0 with the plane count of step 6.
 
 The last three lines of stdout are the card line, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -48,9 +64,16 @@ SCENE = dict(seed=0, spacing_mm=55.0, width_mm=12000.0, depth_mm=9000.0,
 SCENE_POINTS = 222828
 SMALL_SCENE = dict(seed=5, spacing_mm=120.0, width_mm=5000.0,
                    depth_mm=4000.0, wall_h_mm=3000.0, ridge_h_mm=4000.0)
+# the same house at 105 mm spacing: "auto" resolves to "brute" there
+AUTO_SCENE = dict(SCENE, spacing_mm=105.0)
+AUTO_POINTS = 60914
+# the BASELINE config-2 shape (~1M rows): the house at 25.4 mm spacing
+CONFIG2_SCENE = dict(SCENE, spacing_mm=25.4)
+CONFIG2_POINTS = 1046391
 # (planes, least truth agreement) per path: the JAX package's CPU result
-# on this scene, agreement − 0.01
-EXPECT = {"default": (7, 0.9723), "single_level": (8, 0.9633)}
+# on its scene, agreement − 0.01
+EXPECT = {"default": (7, 0.9723), "single_level": (8, 0.9633),
+          "pallas": (7, 0.9853), "auto": (18, 0.6239)}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SRC = "buildingsegment_tpu_torch/csrc"
@@ -66,12 +89,23 @@ KERNELS = {
     "payload_moment_sums": ("segsum.cu", "segsum.py:315", 50, 3),
     "table_lookup": ("segsum.cu", "segsum.py:141", 50, 5),
     "plane_adopt": ("adopt.cu", "adopt.py:87", 50, 3),
+    "knn_exact": ("knn_exact.cu", "pallas_knn.py:95", 20, 1),
 }
-SINGLE_LEVEL = ("label_sweep", "compact_sweep")
+# the kernels each path must launch
+PATH_KERNELS = {
+    "default": ("stats_sweep", "seed_sweep", "label_sweep", "compact_sweep",
+                "refine_sweep", "payload_moment_sums", "table_lookup",
+                "plane_adopt"),
+    "single_level": ("label_sweep", "compact_sweep"),
+    "pallas": ("knn_exact",),
+}
+# the path whose calls and launches each kernel reports
+MAIN_PATH = {name: path for path in ("single_level", "pallas", "default")
+             for name in PATH_KERNELS[path]}
 # the wrapper argument whose length is the call's row count
 ROWS_ARG = {"stats_sweep": 1, "seed_sweep": 2, "label_sweep": 4,
             "compact_sweep": 4, "refine_sweep": 2, "payload_moment_sums": 0,
-            "table_lookup": 0, "plane_adopt": 1}
+            "table_lookup": 0, "plane_adopt": 1, "knn_exact": 1}
 
 
 def fail(msg):
@@ -115,11 +149,47 @@ def window_pairs(torch, mask, w):
     return int(((c[hi] - c[lo] - m) * m).sum())
 
 
+def knn_tiles(torch, args, kw, out_d):
+    """(query-candidate pairs an exact scan by tiles must test on these
+    inputs, candidate tiles ``counts`` lists, tiles it must visit) of one
+    ``knn_exact`` call.  A query tile must visit the listed tiles whose box
+    bound is at or below its final τ, the largest kept k-th distance over
+    its valid rows: a tile above it cannot hold a member of any row's
+    result.  In those tiles each valid query meets each valid candidate
+    outside its rank window |c − q| ≤ w_excl (self included)."""
+    pos, visit, visit_d2, counts = args[0], args[3], args[4], args[5]
+    qt, ct, w = kw["qt"], kw["ct"], kw["w_excl"]
+    valid = pos[0] > -1e7
+    n = valid.shape[0]
+    num_q, num_c = n // qt, n // ct
+    vq = valid.reshape(num_q, qt)
+    tau = torch.where(vq, out_d[:, -1].reshape(num_q, qt), -1.0).amax(1)
+    need = visit_d2 <= tau[:, None]  # a prefix: the list is sorted
+    # the same by candidate tile id
+    seen = torch.zeros_like(need).scatter_(1, visit.long(), need)
+    nvc = valid.reshape(num_c, ct).sum(1)
+    pairs = int((vq.sum(1) * (seen * nvc[None]).sum(1)).sum())
+    # less the rank-window pairs in the tiles visited: the window of row
+    # q spans at most 2·w // ct + 2 candidate tiles
+    csum = torch.cumsum(torch.cat([valid.new_zeros(1, dtype=torch.int64),
+                                   valid.long()]), 0)
+    q = torch.arange(n, device=valid.device)
+    lo, hi = (q - w).clamp(min=0), (q + w).clamp(max=n - 1)
+    for off in range(2 * w // ct + 2):
+        t = lo // ct + off
+        a = torch.maximum(lo, t * ct)
+        b = torch.minimum(hi, t * ct + ct - 1)
+        inside = (a <= b) & valid & seen[q // qt, t.clamp(max=num_c - 1)]
+        cnt = csum[b + 1] - csum[a.clamp(max=n)]
+        pairs -= int(torch.where(inside, cnt, 0).sum())
+    return pairs, int(counts.sum()), int(need.sum())
+
+
 def work(torch, name, args, kw, out):
     """(bytes each input read once and each output written once, f32
-    operations these inputs need) of one wrapper call.  Where the function
-    reads only some rows of an input (the payload of live or hole rows),
-    only those count."""
+    operations these inputs need, a note) of one wrapper call.  Where the
+    function reads only some rows of an input (the payload of live or
+    hole rows), only those count."""
     def nbytes(xs):
         total = 0
         for x in xs:
@@ -131,6 +201,7 @@ def work(torch, name, args, kw, out):
 
     outs = out if isinstance(out, tuple) else (out,)
     moved = nbytes(args) + nbytes(outs)
+    note = ""
     if name == "stats_sweep":
         mask = args[1]
         pairs = window_pairs(torch, mask, kw["w"])
@@ -159,6 +230,15 @@ def work(torch, name, args, kw, out):
         ops = live * 23
     elif name == "table_lookup":
         ops = 0
+    elif name == "knn_exact":
+        # per pair an exact scan must test: d² (8) and one compare; the
+        # kernel's own list rescans are not the function's work
+        pairs, listed, needed = knn_tiles(torch, args, kw, out[0])
+        ops = pairs * 9
+        valid_q = int((args[0][0] > -1e7).sum())
+        note = (f"; candidate tiles: {listed} listed, {needed} under the "
+                f"final tau; {pairs} pairs, {pairs / max(valid_q, 1):.1f} "
+                f"a valid query")
     else:  # plane_adopt
         payload, holes, table = args[0], args[1], args[2]
         nh = int(holes.sum())
@@ -168,7 +248,57 @@ def work(torch, name, args, kw, out):
         # per (hole, ok lane): three dots and the three gates (24); per
         # adopted row: its payload added to its lane (8)
         ops = nh * ok_lanes * 24 + int(out[0].sum()) * 8
-    return moved, ops
+    return moved, ops, note
+
+
+def knn_library_ms(torch, args, kw, reps=2):
+    """The yardstick of #14: ``torch.cdist`` + ``torch.topk`` over
+    4,096-query blocks on the same positions and k (the expansion form:
+    inexact, never used by the port)."""
+    p = torch.stack(list(args[0]), 1)
+    kk = args[1].shape[1]
+
+    def run():
+        for q0 in range(0, p.shape[0], 4096):
+            torch.cdist(p[q0:q0 + 4096], p).topk(kk + 1, largest=False)
+    return cuda_ms(torch, run, reps)
+
+
+def max_abs_err(torch, k_t, p_t):
+    """Largest |kernel − plain| over the outputs (equal values, +inf
+    included, count 0)."""
+    return max(float(torch.where(a == b, 0.0, (a.float() - b.float()).abs())
+                     .max()) for a, b in zip(k_t, p_t))
+
+
+def check_output_ply(np, read_ply, dst, out, n_points):
+    """The labeled PLY as the reference writes it: binary, one color per
+    plane, unlabeled points black."""
+    with open(dst, "rb") as f:
+        head = f.read(1024).split(b"end_header")[0].decode()
+    for line in ("format binary_little_endian 1.0",
+                 f"element vertex {n_points}",
+                 "property uchar green", "property uchar blue",
+                 "property uchar red"):
+        if line not in head:
+            fail(f"output PLY header lacks {line!r}")
+    back = read_ply(dst)
+    if back.count != n_points:
+        fail(f"output PLY has {back.count} points, expected {n_points}")
+    labeled = out.plane_idx > 0
+    colors = back.colors
+    if not ((colors[labeled] >= 55).all() and (colors[~labeled] == 0).all()):
+        fail("output PLY colors do not follow the plane labels")
+    if len(np.unique(colors[labeled], axis=0)) != out.num_planes:
+        fail("output PLY does not hold one color per plane")
+    if not np.isfinite(out.plane_normals).all():
+        fail("non-finite plane normals")
+
+
+def stage_spread(runs):
+    """(min, max) seconds of every stage over the runs' timings."""
+    return {k: [round(min(r[k] for r in runs), 6),
+                round(max(r[k] for r in runs), 6)] for k in runs[0]}
 
 
 def clone(torch, x):
@@ -193,12 +323,15 @@ def main():
     import numpy as np
 
     from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.core.morton import morton_argsort
+    from buildingsegment_tpu_torch.core.pointset import PointBatch
+    from buildingsegment_tpu_torch.core.quantize import shift_to_origin
     from buildingsegment_tpu_torch.ops import (
-        adopt, compact_sweep, segsum, stats_sweep, window_sweep,
+        adopt, compact_sweep, pallas_knn, segsum, stats_sweep, window_sweep,
     )
     from buildingsegment_tpu_torch.pipeline import (
         DEFAULT_CONFIG, HostPointCloud, PipelineConfig, read_ply,
-        segment_cloud, segment_file, write_ply,
+        resolve_knn_method, segment_cloud, segment_file, write_ply,
     )
     from buildingsegment_tpu_torch.seg import coarse, region_grow
     from buildingsegment_tpu_torch.utils import (
@@ -223,6 +356,8 @@ def main():
         "table_lookup": (coarse, "table_lookup",
                          segsum.table_lookup_reference),
         "plane_adopt": (coarse, "plane_adopt", adopt.plane_adopt_reference),
+        "knn_exact": (pallas_knn, "knn_exact",
+                      pallas_knn.knn_exact_reference),
     }
     cuda_fns = {
         "stats_sweep": kernels.stats_sweep_cuda,
@@ -233,6 +368,7 @@ def main():
         "payload_moment_sums": kernels.payload_moment_sums_cuda,
         "table_lookup": kernels.table_lookup_cuda,
         "plane_adopt": kernels.plane_adopt_cuda,
+        "knn_exact": kernels.knn_exact_cuda,
     }
 
     # 2. build
@@ -243,6 +379,7 @@ def main():
         "default": DEFAULT_CONFIG,
         "single_level": PipelineConfig(knn_method="window", seg_group=1,
                                        pad_to_multiple=2048),
+        "pallas": PipelineConfig(knn_method="pallas"),
     }
     pts, truth = make_building_cloud(**SCENE)
     if len(pts) != SCENE_POINTS:
@@ -277,8 +414,7 @@ def main():
             finally:
                 for k, (mod, attr, _) in hooks.items():
                     setattr(mod, attr, orig[k])
-            want = KERNELS if path == "default" else SINGLE_LEVEL
-            missing = [k for k in want if k not in seen]
+            missing = [k for k in PATH_KERNELS[path] if k not in seen]
             if missing:
                 fail(f"{path} path did not reach {missing}")
             print(f"warm-up run, {path}: {warm.num_planes} planes, "
@@ -297,8 +433,7 @@ def main():
                     torch.cuda.synchronize()
                     k_t = k_out if isinstance(k_out, tuple) else (k_out,)
                     p_t = p_out if isinstance(p_out, tuple) else (p_out,)
-                    e = max(float((a.float() - b.float()).abs().max())
-                            for a, b in zip(k_t, p_t))
+                    e = max_abs_err(torch, k_t, p_t)
                     if not all(torch.equal(a, b) for a, b in zip(k_t, p_t)):
                         fail(f"{name} ({path} path, {n} rows, kw {kw}): "
                              f"kernel != plain version (max abs err {e})")
@@ -310,25 +445,31 @@ def main():
                 ms = cuda_ms(torch, lambda: cuda_fns[name](*args, **kw), reps)
                 plain_ms = cuda_ms(torch, lambda: hooks[name][2](*args, **kw),
                                    plain_reps)
-                moved, ops = work(torch, name, args, kw, k_out)
+                moved, ops, note = work(torch, name, args, kw, k_out)
                 t_bytes = moved / HBM_BYTES_PER_S * 1e3
                 t_ops = ops / F32_OPS_PER_S * 1e3
+                library_ms = (knn_library_ms(torch, args, kw)
+                              if name == "knn_exact" else None)
                 results[(path, name)] = dict(
                     rows=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=library_ms,
                 )
                 print(f"{name} ({path} path): {len(calls)} calls, kernel == "
                       f"plain on each; rows={n}: {ms:.4f} ms vs plain "
-                      f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms "
-                      f"by {results[(path, name)]['bound_by']} ({moved} B, "
-                      f"{ops} ops) ({card})")
+                      f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
+                      f"{max(t_bytes, t_ops):.6f} ms by "
+                      f"{results[(path, name)]['bound_by']} ({moved} B, "
+                      f"{ops} ops{note}) ({card})")
         del captured
 
         # 5. small input: card (kernels) vs CPU (plain versions)
         spts, _ = make_building_cloud(**SMALL_SCENE)
         for path, cfg in (("default", PipelineConfig(knn_method="window")),
-                          ("single_level", configs["single_level"])):
+                          ("single_level", configs["single_level"]),
+                          ("brute", PipelineConfig(knn_method="brute")),
+                          ("pallas", configs["pallas"])):
             small_gpu = segment_cloud(HostPointCloud(positions=spts), cfg,
                                       device="cuda")
             small_cpu = segment_cloud(HostPointCloud(positions=spts), cfg,
@@ -344,35 +485,14 @@ def main():
 
         # 6. the measured runs, one per path
         launches, summary = {}, {}
-        for path in ("single_level", "default"):
+        for path in ("single_level", "pallas", "default"):
             kernels.reset_launch_counts()
             out = segment_file(src, dst, configs[path], device="cuda")
             launches[path] = dict(kernels.launch_counts)
-            want = KERNELS if path == "default" else SINGLE_LEVEL
-            for name in want:
+            for name in PATH_KERNELS[path]:
                 if launches[path][name] == 0:
                     fail(f"{path} path never launched {name}")
-            with open(dst, "rb") as f:
-                head = f.read(1024).split(b"end_header")[0].decode()
-            for line in ("format binary_little_endian 1.0",
-                         f"element vertex {len(pts)}",
-                         "property uchar green", "property uchar blue",
-                         "property uchar red"):
-                if line not in head:
-                    fail(f"output PLY header lacks {line!r}")
-            back = read_ply(dst)
-            if back.count != len(pts):
-                fail(f"output PLY has {back.count} points, expected "
-                     f"{len(pts)}")
-            labeled = out.plane_idx > 0
-            colors = back.colors
-            if not ((colors[labeled] >= 55).all()
-                    and (colors[~labeled] == 0).all()):
-                fail("output PLY colors do not follow the plane labels")
-            if len(np.unique(colors[labeled], axis=0)) != out.num_planes:
-                fail("output PLY does not hold one color per plane")
-            if not np.isfinite(out.plane_normals).all():
-                fail("non-finite plane normals")
+            check_output_ply(np, read_ply, dst, out, len(pts))
             bij = bij_agreement(truth, out.plane_idx)
             planes, least = EXPECT[path]
             if out.num_planes != planes or bij < least:
@@ -387,24 +507,120 @@ def main():
             print(f"{path} path: {out.num_planes} planes at truth agreement "
                   f"{bij:.6f}, launches {launches[path]}")
 
-        # stage times over three more default-path runs (min, max)
-        runs = [segment_file(src, dst, DEFAULT_CONFIG, device="cuda").timings
-                for _ in range(3)]
-        spread = {k: [round(min(r[k] for r in runs), 6),
-                      round(max(r[k] for r in runs), 6)] for k in runs[0]}
+        # stage times over three more runs of the default and pallas
+        # paths (min, max)
+        spread = {path: stage_spread([
+            segment_file(src, dst, configs[path], device="cuda").timings
+            for _ in range(3)]) for path in ("default", "pallas")}
+
+        # 7. "auto" at 60,914 points resolves to the brute path
+        apts, atruth = make_building_cloud(**AUTO_SCENE)
+        if len(apts) != AUTO_POINTS:
+            fail(f"auto scene has {len(apts)} points, expected {AUTO_POINTS}")
+        method = resolve_knn_method(DEFAULT_CONFIG,
+                                    DEFAULT_CONFIG.padded_count(len(apts)))
+        if method != "brute":
+            fail(f"auto resolved to {method!r} at {len(apts)} points")
+        asrc = os.path.join(tmp, "auto.ply")
+        write_ply(HostPointCloud(positions=apts), asrc, position_scale=0.001)
+        kernels.reset_launch_counts()
+        out = segment_file(asrc, dst, DEFAULT_CONFIG, device="cuda")
+        launches["auto"] = dict(kernels.launch_counts)
+        check_output_ply(np, read_ply, dst, out, len(apts))
+        bij = bij_agreement(atruth, out.plane_idx)
+        planes, least = EXPECT["auto"]
+        if out.num_planes != planes or bij < least:
+            fail(f"auto ({method}): {out.num_planes} planes at truth "
+                 f"agreement {bij:.6f}; expected {planes} at >= {least}")
+        summary["auto"] = {
+            "points": len(apts), "method": method, "planes": out.num_planes,
+            "truth_bij": round(bij, 6), "num_sweeps": out.num_sweeps,
+            "host_syncs": out.host_syncs, "diagnostics": out.diagnostics,
+            "launches": launches["auto"],
+            "stages_s": {k: round(v, 6) for k, v in out.timings.items()},
+        }
+        print(f"auto at {len(apts)} points -> {method}: {out.num_planes} "
+              f"planes at truth agreement {bij:.6f}")
+        spread["auto"] = stage_spread([
+            segment_file(asrc, dst, DEFAULT_CONFIG, device="cuda").timings
+            for _ in range(3)])
+
+        # 9. the CLI on the card, as a user runs it
+        cli_dst = os.path.join(tmp, "cli.ply")
+        res = subprocess.run(
+            [sys.executable, "-m", "buildingsegment_tpu_torch.cli",
+             f"-a={src}", f"-s={cli_dst}", "--knn-method", "pallas",
+             "--json-summary"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600,
+        )
+        if res.returncode != 0:
+            fail(f"CLI exited {res.returncode}: {res.stderr[-2000:]}")
+        cli = json.loads(res.stdout.strip().splitlines()[-1])
+        if cli["planes"] != summary["pallas"]["planes"]:
+            fail(f"CLI gave {cli['planes']} planes, segment_file "
+                 f"{summary['pallas']['planes']}")
+        print(f"CLI --knn-method pallas: rc 0, {cli['planes']} planes")
+
+    # 8. the config-2 shape: knn_pallas(k=16) at ~1M rows
+    cpts, _ = make_building_cloud(**CONFIG2_SCENE)
+    if len(cpts) != CONFIG2_POINTS:
+        fail(f"config-2 scene has {len(cpts)} points, expected "
+             f"{CONFIG2_POINTS}")
+    batch = PointBatch.upload(cpts, DEFAULT_CONFIG.padded_count(len(cpts)),
+                              device="cuda")
+    shifted, _lo, _hi = shift_to_origin(batch.positions, batch.mask)
+    order = morton_argsort(shifted, batch.mask)
+    spos, smask = shifted[order].contiguous(), batch.mask[order].contiguous()
+    calls8 = []
+    scan = pallas_knn.knn_exact
+
+    def keep(*args, **kw):
+        calls8.append((args, kw))
+        return scan(*args, **kw)
+
+    pallas_knn.knn_exact = keep
+    try:
+        pallas_knn.knn_pallas(spos, smask, 16)
+    finally:
+        pallas_knn.knn_exact = scan
+    knn_ms = cuda_ms(torch, lambda: pallas_knn.knn_pallas(spos, smask, 16), 3)
+    args, kw = calls8[0]
+    kernel_ms = cuda_ms(torch, lambda: kernels.knn_exact_cuda(*args, **kw), 3)
+    got_d, got_i = kernels.knn_exact_cuda(*args, **kw)
+    qt = kw["qt"]
+    tiles = torch.randperm(spos.shape[0] // qt,
+                           generator=torch.Generator().manual_seed(0))[:32]
+    rows = (tiles[:, None] * qt + torch.arange(qt)).reshape(-1).to("cuda")
+    ref_d, ref_i = pallas_knn.knn_exact_reference(*args, rows=rows, **kw)
+    if not (torch.equal(got_d[rows], ref_d) and torch.equal(got_i[rows],
+                                                             ref_i)):
+        fail("config-2 shape: kernel != plain version on the sampled tiles")
+    config2 = {
+        "points": len(cpts), "rows": spos.shape[0], "k": 16,
+        "knn_pallas_ms": knn_ms, "kernel_ms": kernel_ms,
+        "mpts_per_s": len(cpts) / knn_ms / 1e3,
+        "sampled_rows_equal": int(rows.shape[0]), "card": card,
+    }
+    print(f"config-2 shape: knn_pallas(k=16) on {len(cpts)} points "
+          f"({spos.shape[0]} rows): {knn_ms:.2f} ms a call "
+          f"({config2['mpts_per_s']:.3f} Mpts/s), kernel {kernel_ms:.2f} ms; "
+          f"32 sampled query tiles == plain ({card})")
 
     print(json.dumps({"points": len(pts), "card": card, "build_s": t_build,
-                      "paths": summary, "default_stages_min_max_s": spread}))
+                      "paths": summary, "stages_min_max_s": spread,
+                      "config2": config2}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
-        r = results[("default", name)]
+        path = MAIN_PATH[name]
+        r = results[(path, name)]
         rows.append({
             "name": name, "route": "cuda", "source": f"{SRC}/{src_file}",
             "replaces": f"{JAX_OPS}/{replaces}",
-            "launches": launches["default"][name],
+            "launches": launches[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(card)
     print(json.dumps({"kernels": rows}))

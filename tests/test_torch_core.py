@@ -24,7 +24,8 @@ def _padded(offset, cap=16384):
         seed=5, spacing_mm=120.0, width_mm=5000.0, depth_mm=4000.0,
         wall_h_mm=3000.0, ridge_h_mm=4000.0,
     )
-    batch = PointBatch.upload(pts + np.asarray(offset, np.int32), cap)
+    batch = PointBatch.upload(pts + np.asarray(offset, np.int32), cap,
+                              device="cpu")
     return batch.positions.numpy(), batch.mask.numpy()
 
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from buildingsegment_tpu_torch import kernels
-from buildingsegment_tpu_torch.core.morton import morton_sort
+from buildingsegment_tpu_torch.core.morton import morton_argsort, morton_sort
 from buildingsegment_tpu_torch.ops.adopt import (
     adopt_table,
     plane_adopt_reference,
@@ -23,7 +23,12 @@ from buildingsegment_tpu_torch.ops.compact_sweep import (
     compact_sweep_reference,
 )
 from buildingsegment_tpu_torch.ops.fused import knn_normals_window_sorted
+from buildingsegment_tpu_torch.ops.knn import knn
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
+from buildingsegment_tpu_torch.ops.pallas_knn import (
+    _prepare,
+    knn_exact_reference,
+)
 from buildingsegment_tpu_torch.ops.segsum import (
     payload_moment_sums_reference,
     table_lookup_reference,
@@ -141,6 +146,7 @@ def test_kernel_wrappers_reject_bad_inputs(scene):
 
 
 _SLICE1 = ("label_sweep", "compact_sweep")
+_PALLAS = ("knn_exact",)
 _MULTIGRID = ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
               "payload_moment_sums", "table_lookup", "plane_adopt")
 
@@ -151,8 +157,10 @@ _MULTIGRID = ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
         (PipelineConfig(knn_method="window", seg_group=1,
                         pad_to_multiple=2048), _SLICE1),
         (PipelineConfig(knn_method="window"), _MULTIGRID),
+        (PipelineConfig(knn_method="brute"), ()),
+        (PipelineConfig(knn_method="pallas"), _PALLAS),
     ],
-    ids=["single_level", "default_multigrid"],
+    ids=["single_level", "default_multigrid", "brute", "pallas"],
 )
 def test_segment_cloud_card_matches_cpu(cuda, cfg, launched):
     pts, truth = make_building_cloud(**_SCENE)
@@ -286,3 +294,60 @@ def test_plane_adopt_kernel_matches_plain(cuda, signed):
     assert got[0].sum() > 1000
     for g_, r in zip(got, ref):
         assert torch.equal(g_, r)
+
+
+def _knn_cloud(case, device):
+    """(positions int32[C, 3], mask bool[C]) on ``device``: a random
+    cloud or the small scene, Morton-sorted, or an unsorted cloud whose
+    last third is padding."""
+    rng = np.random.default_rng(12)
+    if case == "random":
+        pts, cap = rng.integers(0, 20_000, (8000, 3)), 8192
+    elif case == "scene":
+        pts, cap = make_building_cloud(**_SCENE)[0], 9216
+    else:
+        pts, cap = rng.integers(0, 3000, (2000, 3)), 3072
+    pos = np.full((cap, 3), 2**24, np.int32)
+    pos[: len(pts)] = pts
+    mask = np.zeros(cap, bool)
+    mask[: len(pts)] = True
+    pos, mask = torch.from_numpy(pos).to(device), torch.from_numpy(mask).to(device)
+    if case != "padding":
+        order = morton_argsort(pos, mask)
+        pos, mask = pos[order], mask[order]
+    return pos, mask
+
+
+@pytest.mark.parametrize("case,k", [("random", 16), ("scene", 16),
+                                    ("scene", 50), ("padding", 16)])
+def test_knn_exact_kernel_matches_plain(cuda, case, k):
+    pos, mask = _knn_cloud(case, cuda)
+    cols, seed_d, seed_i, visit, visit_d2, counts, qt, ct, w = _prepare(
+        pos, mask, k)
+    args = (cols, seed_d, seed_i, visit, visit_d2, counts)
+    kw = dict(qt=qt, ct=ct, w_excl=w)
+    before = kernels.launch_counts["knn_exact"]
+    got = kernels.knn_exact_cuda(*args, **kw)
+    assert kernels.launch_counts["knn_exact"] == before + 1
+    ref = knn_exact_reference(*args, **kw)
+    # the scan replaced seeds somewhere, so the check is not vacuous
+    assert (torch.sort(got[1], 1).values != torch.sort(seed_i, 1).values).any()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_brute_knn_ignores_tf32(cuda):
+    """The brute kNN writes its cross term out, so a caller that turns
+    TF32 matmuls on gets the same graph (with a TF32 matmul the error on
+    q·c at |q|² ~ 1e7 mm² would exceed a neighbour's d²)."""
+    pos, mask = _knn_cloud("scene", cuda)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        ref = knn(pos, mask, 50)
+        torch.set_float32_matmul_precision("high")
+        got = knn(pos, mask, 50)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)

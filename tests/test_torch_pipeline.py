@@ -6,8 +6,8 @@ single-level (``seg_group=1``) and multigrid (the default
 ``seg_group=4``, ``seg_levels=2``): the contract of
 tests/test_forced_tpu_path.py — the same plane count, cross agreement
 ≥ 0.99 and truth agreement within 0.01.  ``segment_file`` round-trips a
-binary PLY.  Configurations the port does not cover yet raise
-NotImplementedError.
+binary PLY.  Multi-scan ``segment_files``, not ported yet, raises
+NotImplementedError.  (The exact-kNN methods: tests/test_torch_classic.py.)
 """
 
 import os
@@ -84,19 +84,6 @@ def test_segment_file_round_trip(scene, tmp_path):
     assert (back.colors[labeled] >= 55).all()
     assert (back.colors[~labeled] == 0).all()
     assert len(np.unique(back.colors[labeled], axis=0)) == out.num_planes
-
-
-@pytest.mark.parametrize(
-    "cfg",
-    [
-        PipelineConfig(knn_method="brute"),
-        PipelineConfig(knn_method="pallas"),
-    ],
-)
-def test_uncovered_configs_raise(scene, cfg):
-    pts, _ = scene
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        segment_cloud(HostPointCloud(positions=pts), cfg, device="cpu")
 
 
 def test_multigrid_config_runs(scene):

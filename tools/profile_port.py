@@ -3,10 +3,12 @@
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 tools/profile_port.py [--config default|single_level] [--runs 3]
+    python3 tools/profile_port.py [--config default|single_level|pallas|brute] [--runs 3]
 
-Builds the slice scene (222,828 points, the scene of chip_smoke.py),
-warms ``segment_cloud`` up twice, then runs it ``--runs`` times under
+Builds the slice scene (222,828 points, the scene of chip_smoke.py; for
+``--config brute`` the same house at 105 mm spacing, 60,914 points,
+where ``DEFAULT_CONFIG``'s "auto" resolves to "brute"), warms
+``segment_cloud`` up twice, then runs it ``--runs`` times under
 ``torch.profiler`` (CPU and CUDA activity).  Prints the card line, then
 one JSON line: the host span per run (each run ends in the labels'
 device→host fetch), the device busy time per run (the sum of the device
@@ -28,7 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("default", "single_level"),
+    ap.add_argument("--config",
+                    choices=("default", "single_level", "pallas", "brute"),
                     default="default")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
@@ -51,11 +54,17 @@ def main():
     from buildingsegment_tpu_torch.pipeline import segment_cloud
     from buildingsegment_tpu_torch.utils import make_building_cloud
 
-    cfg = DEFAULT_CONFIG if args.config == "default" else PipelineConfig(
-        knn_method="window", seg_group=1, pad_to_multiple=2048)
+    cfg = {
+        "default": DEFAULT_CONFIG,
+        "single_level": PipelineConfig(knn_method="window", seg_group=1,
+                                       pad_to_multiple=2048),
+        "pallas": PipelineConfig(knn_method="pallas"),
+        "brute": DEFAULT_CONFIG,
+    }[args.config]
     pts, _ = make_building_cloud(
-        seed=0, spacing_mm=55.0, width_mm=12000.0, depth_mm=9000.0,
-        wall_h_mm=6000.0, ridge_h_mm=8000.0, noise_mm=8.0,
+        seed=0, spacing_mm=105.0 if args.config == "brute" else 55.0,
+        width_mm=12000.0, depth_mm=9000.0, wall_h_mm=6000.0,
+        ridge_h_mm=8000.0, noise_mm=8.0,
     )
     cloud = HostPointCloud(positions=pts)
     for _ in range(2):
