@@ -4,22 +4,28 @@ Port of ``buildingsegment_tpu/cli.py``: the reference's argv contract
 (``tmc3 -a=<in.ply> -s=<out.ply>``, parsed by ``analyse_path`` at
 tmc3/my_function.cpp:163-178, which splits each argument on '=' and
 ignores the flag letter) plus the ``--flag`` extensions that expose the
-reference's hard-coded constants.  ``segment_file`` runs on the card.
+reference's hard-coded constants.  The pipeline runs on the card.
 
 Usage:
     python -m buildingsegment_tpu_torch.cli -a=scan.ply -s=labeled.ply
     python -m buildingsegment_tpu_torch.cli -a=scan.ply -s=out.ply \\
         --knn-method pallas --th-thickness 300 --profile --json-summary
+    python -m buildingsegment_tpu_torch.cli -a=scan.ply -s=out.ply \\
+        --render-dir renders --extract-contours
+    python -m buildingsegment_tpu_torch.cli --batch IN_DIR OUT_DIR \\
+        [--render-dir renders] [--json-summary]
 
-The flags of paths the port does not have yet (the render, contours,
-multi-scan, the golden oracle, tracing, stage dumps) are accepted by
-the parser and exit with code 2 naming their ROADMAP.md item.
+The flags of paths the port does not have yet (the golden oracle,
+tracing, stage dumps) are accepted by the parser and exit with code 2
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import sys
 
 from buildingsegment_tpu_torch.config import PipelineConfig
@@ -28,15 +34,10 @@ __all__ = ["main", "parse_args"]
 
 #: flag → the ROADMAP.md item (Queue B, "Next slices") that ports it
 _NOT_PORTED = {
-    "render_dir": "--render-dir: 'Raster (raster/ortho.py, ops/scatter.py) "
-                  "with #8'",
-    "extract_contours": "--extract-contours: 'Raster (raster/ortho.py, "
-                        "ops/scatter.py) with #8'",
-    "batch": "--batch: 'Bench and profiling' (segment_files multi-scan)",
     "dump_stages": "--dump-stages: 'Bench and profiling' (dump_stages)",
     "trace": "--trace: 'Bench and profiling' (a torch.profiler trace)",
-    "golden": "--golden: the golden oracle (seg/golden.py), not in any "
-              "slice yet",
+    "golden": "--golden: 'Bench and profiling' (the golden oracle, "
+              "seg/golden.py)",
 }
 
 
@@ -100,16 +101,29 @@ def parse_args(argv):
         "PCCPointSet.h:457-472); 0 = exact-duplicate removal",
     )
     p.add_argument("--ascii", action="store_true", help="write ascii PLY")
-    p.add_argument("--render-dir", help="ortho renders (not ported)")
+    p.add_argument(
+        "--render-dir",
+        help="also render the ortho height/density PNGs into DIR (the "
+        "reference's disabled raster path, TMC3.cpp:223-226); with "
+        "--batch, one subdirectory per scan",
+    )
     p.add_argument("--profile", action="store_true", help="print stage timings")
-    p.add_argument("--extract-contours", action="store_true",
-                   help="contour extraction (not ported)")
+    p.add_argument(
+        "--extract-contours",
+        action="store_true",
+        help="with --render-dir: also extract building contours from the "
+        "density render and extrude them to csa.obj (TMC3.cpp:223-226)",
+    )
     p.add_argument("--trace", metavar="DIR", help="device trace (not ported)")
     p.add_argument(
         "--json-summary", action="store_true", help="print a JSON run summary"
     )
-    p.add_argument("--batch", nargs=2, metavar=("IN_DIR", "OUT_DIR"),
-                   help="multi-scan mode (not ported)")
+    p.add_argument(
+        "--batch",
+        nargs=2,
+        metavar=("IN_DIR", "OUT_DIR"),
+        help="multi-scan mode: segment every .ply in IN_DIR into OUT_DIR",
+    )
     p.add_argument("--dump-stages", metavar="NPZ",
                    help="stage outputs as .npz (not ported)")
     args = p.parse_args(rest)
@@ -129,8 +143,10 @@ def main(argv=None, *, device="cuda") -> int:
             print(f"error: {item} is a later slice of the port "
                   "(ROADMAP.md)", file=sys.stderr)
             return 2
-    if not input_path or not output_path:
+    if not args.batch and (not input_path or not output_path):
         print("usage: buildingsegment_tpu_torch -a=<in.ply> -s=<out.ply> "
+              "[--flags]\n"
+              "       buildingsegment_tpu_torch --batch IN_DIR OUT_DIR "
               "[--flags]", file=sys.stderr)
         return 2
 
@@ -147,7 +163,34 @@ def main(argv=None, *, device="cuda") -> int:
         dedup_bits=args.dedup_bits,
     )
 
-    from buildingsegment_tpu_torch.pipeline import segment_file
+    from buildingsegment_tpu_torch.pipeline import segment_file, segment_files
+
+    if args.batch:
+        in_dir, out_dir = args.batch
+        inputs = sorted(glob.glob(os.path.join(in_dir, "*.ply")))
+        if not inputs:
+            print(f"error: no .ply files in {in_dir}", file=sys.stderr)
+            return 1
+        os.makedirs(out_dir, exist_ok=True)
+        outs = [os.path.join(out_dir, os.path.basename(p)) for p in inputs]
+        results = segment_files(inputs, outs, config, device=device,
+                                signed_normals=args.signed_normals,
+                                render_dir=args.render_dir)
+        total_pts = sum(r.cloud.count for r in results)
+        rate = total_pts / max(sum(r.timings["total"] for r in results),
+                               1e-9) / 1e6
+        print(f"{len(results)} scans, {total_pts} points, "
+              f"{sum(r.num_planes for r in results)} planes, "
+              f"{rate:.3f} Mpoints/sec")
+        if args.json_summary:
+            print(json.dumps({
+                "scans": len(results),
+                "points": total_pts,
+                "planes": [r.num_planes for r in results],
+                "mpoints_per_sec": rate,
+                "diagnostics": [r.diagnostics for r in results],
+            }))
+        return 0
 
     try:
         out = segment_file(input_path, output_path, config, device=device,
@@ -155,6 +198,28 @@ def main(argv=None, *, device="cuda") -> int:
     except FileNotFoundError:
         print(f"error: cannot open {input_path}", file=sys.stderr)
         return 1
+
+    if args.render_dir:
+        from buildingsegment_tpu_torch.raster.contours import (
+            extracted_contour,
+        )
+        from buildingsegment_tpu_torch.raster.ortho import (
+            DENSITY_PNG,
+            render_ortho_views,
+        )
+
+        paths = render_ortho_views(out, args.render_dir, config)
+        if args.extract_contours:
+            extracted_contour(
+                paths[DENSITY_PNG],
+                os.path.join(args.render_dir, "extracted_contours.png"),
+                os.path.join(args.render_dir, "extracted_contours_flip.png"),
+                obj_path=os.path.join(args.render_dir, "csa.obj"),
+                threshold=config.contour_threshold,
+                min_area=config.contour_min_area,
+                min_perimeter=config.contour_min_perimeter,
+                close_iterations=config.contour_close_iters,
+            )
 
     print(f"{out.cloud.count} points → {out.num_planes} planes → {output_path}")
     if args.profile:

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -41,6 +42,7 @@ __all__ = [
     "refine_sweep_cuda",
     "payload_moment_sums_cuda",
     "table_lookup_cuda",
+    "plane_sums_cuda",
     "plane_adopt_cuda",
     "knn_exact_cuda",
 ]
@@ -62,10 +64,13 @@ _NVCC_FLAGS = (
 launch_counts = {
     "label_sweep": 0, "compact_sweep": 0, "stats_sweep": 0,
     "seed_sweep": 0, "refine_sweep": 0, "payload_moment_sums": 0,
-    "table_lookup": 0, "plane_adopt": 0, "knn_exact": 0,
+    "table_lookup": 0, "plane_adopt": 0, "knn_exact": 0, "plane_sums": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# the multi-scan pipeline launches kernels from its main and writer
+# threads: the first use builds and loads the library exactly once
+_load_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -140,9 +145,14 @@ def build(verbose: bool = False) -> float:
 
 
 def _load() -> ctypes.CDLL:
+    with _load_lock:
+        if _lib is None:
+            _bind()
+    return _lib
+
+
+def _bind() -> None:
     global _lib
-    if _lib is not None:
-        return _lib
     build()
     lib = ctypes.CDLL(_library_path())
     lib.bst_error_string.argtypes = [_I]
@@ -162,12 +172,12 @@ def _load() -> ctypes.CDLL:
     lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
     lib.bst_adopt.argtypes = [_P] * 8 + [_I, _F, _F, _I, _P]
     lib.bst_knn_exact.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.bst_plane_sums.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
     for fn in (lib.bst_stats_sweep, lib.bst_seed_sweep, lib.bst_refine_sweep,
                lib.bst_paymom, lib.bst_lookup, lib.bst_adopt,
-               lib.bst_knn_exact):
+               lib.bst_knn_exact, lib.bst_plane_sums):
         fn.restype = _I
     _lib = lib
-    return lib
 
 
 def _check(lib, err: int, name: str) -> None:
@@ -308,6 +318,11 @@ def _stats_ranks(k, w, radius, max_nn):
 PAYMOM_ROWS = 1024
 ADOPT_ROWS = 256
 ADOPT_LANES = 128
+#: rows summed in order by one block of the segment sums (kSegsumRows in
+#: csrc/segsum.cu); the plain version uses the same blocks
+SEGSUM_ROWS = 1024
+#: widest payload the segment-sum kernel takes (the TPU kernel's lane row)
+SEGSUM_MAX_COLS = 128
 
 
 def stats_sweep_cuda(pos, mask, *, k, w, radius, max_nn):
@@ -417,6 +432,33 @@ def table_lookup_cuda(ids, lut, n_live):
                          out.data_ptr(), n, _stream(out))
     _check(lib, err, "table_lookup")
     launch_counts["table_lookup"] += 1
+    return out
+
+
+def plane_sums_cuda(ids, payload, n_live, *, table_cap):
+    """CUDA per-id sums (csrc/segsum.cu); see
+    :func:`buildingsegment_tpu_torch.ops.segsum.plane_sums`."""
+    n = ids.shape[0]
+    cols = payload.shape[1] if payload.dim() == 2 else 0
+    if not 1 <= cols <= SEGSUM_MAX_COLS:
+        raise ValueError(f"plane_sums: payload must be [n, 1..{SEGSUM_MAX_COLS}]"
+                         f", got {tuple(payload.shape)}")
+    ids = _cuda_tensor(ids, torch.int32, (n,), "ids")
+    payload = _cuda_tensor(payload, torch.float32, (n, cols), "payload")
+    cap128 = ceil128(table_cap)
+    bound = min(ceil128(n_live), cap128)
+    out = torch.zeros((cap128, cols), dtype=torch.float32, device=ids.device)
+    if bound == 0 or n == 0:  # no live id or no row: nothing launched
+        return out
+    nblk = -(-n // SEGSUM_ROWS)
+    partial = torch.empty((nblk, bound, cols), dtype=torch.float32,
+                          device=ids.device)
+    lib = _load()
+    err = lib.bst_plane_sums(ids.data_ptr(), payload.data_ptr(), cols,
+                             partial.data_ptr(), out.data_ptr(), n, bound,
+                             _stream(out))
+    _check(lib, err, "plane_sums")
+    launch_counts["plane_sums"] += 1
     return out
 
 

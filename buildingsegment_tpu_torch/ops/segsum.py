@@ -1,18 +1,22 @@
-"""Segment sums and lookups over the small plane table of the finalize.
+"""Segment sums and lookups over a small id table.
 
-Port of ``plane_payload_moment_sums`` (kernel ``_paymom_kernel``) and
-``table_lookup`` (kernel ``_lookup_kernel``) in
-``buildingsegment_tpu/ops/segsum.py``.  The TPU kernels replaced XLA's
+Port of ``plane_payload_moment_sums`` (kernel ``_paymom_kernel``),
+``table_lookup`` (kernel ``_lookup_kernel``) and ``plane_sums`` (kernel
+``_segsum_kernel``; ``plane_sums_t``/``_segsum_t_kernel`` is the same
+function in transposed layout) in ``buildingsegment_tpu/ops/segsum.py``.
+The first two serve the multigrid finalize, ``plane_sums`` the raster's
+ground histogram.  The TPU kernels replaced XLA's
 sort-based scatter and gather with one-hot matmuls over the live
 128-id chunks; on Hopper a gather is a gather, and a segment sum is a
 fixed-order reduction (``csrc/segsum.cu``).
 
-Live bound: both TPU kernels touch only the id chunks below
+Live bound: the TPU kernels touch only the id chunks below
 ``ceil(n_live / 128)``, so an id counts iff ``0 ≤ id < ceil128(n_live)``
 (capped at the table) — ids just above ``n_live`` inside the last live
 chunk still count.  The port keeps that rule.
 
-Summation order (both versions): block b of ``kernels.PAYMOM_ROWS``
+Summation order (kernel and plain version alike): block b of
+``kernels.PAYMOM_ROWS`` (``kernels.SEGSUM_ROWS`` for ``plane_sums``)
 rows sums its rows in row order into its own partial table, then the
 partial tables are added in block order.
 """
@@ -26,20 +30,43 @@ import torch
 from buildingsegment_tpu_torch import kernels
 
 __all__ = [
+    "row_order_sums",
+    "block_order_sums",
     "plane_payload_moment_sums", "payload_moment_sums_reference",
     "table_lookup", "table_lookup_reference",
+    "plane_sums", "plane_sums_reference",
 ]
+
+
+def row_order_sums(idx: torch.Tensor, rows: torch.Tensor,
+                   size: int) -> torch.Tensor:
+    """[size, C] per-id sums of ``rows`` [M, C], each id's rows added to
+    0.0 one after another in row order, so the sums do not change from
+    run to run.  On the CPU ``index_add_`` walks the rows in order (the
+    accumulating ``index_put_`` there adds them in parallel, in no fixed
+    order); on the card the accumulating ``index_put_`` sorts the ids
+    stably and adds each id's rows in order (``index_add_`` there uses
+    float atomics).  That holds for rows of 2 columns or more: a single
+    column goes to a kernel that sums runs of 32 or more equal ids in
+    warp-strided partials, so one column is summed as two (a zero column
+    beside it) and sliced back."""
+    cols = rows.shape[1]
+    if rows.is_cuda:
+        if cols == 1:
+            rows = torch.cat([rows, torch.zeros_like(rows)], 1)
+        out = torch.zeros((size, rows.shape[1]), dtype=rows.dtype,
+                          device=rows.device)
+        return out.index_put_((idx,), rows, accumulate=True)[:, :cols]
+    out = torch.zeros((size, cols), dtype=rows.dtype, device=rows.device)
+    return out.index_add_(0, idx, rows)
 
 
 def block_order_sums(key_block: torch.Tensor, key_id: torch.Tensor,
                      rows: torch.Tensor, nblk: int, size: int) -> torch.Tensor:
     """[size, C] sums of ``rows`` [M, C] by id, each block's rows added in
-    row order into its own table (accumulating ``index_put_`` runs
-    sequentially on the CPU and after a stable sort on the card), then the
-    block tables added in block order."""
-    part = torch.zeros((nblk * size, rows.shape[1]), dtype=rows.dtype,
-                       device=rows.device)
-    part.index_put_((key_block * size + key_id,), rows, accumulate=True)
+    row order into its own table (:func:`row_order_sums`), then the block
+    tables added in block order."""
+    part = row_order_sums(key_block * size + key_id, rows, nblk * size)
     part = part.view(nblk, size, rows.shape[1])
     acc = torch.zeros((size, rows.shape[1]), dtype=rows.dtype,
                       device=rows.device)
@@ -118,3 +145,44 @@ def table_lookup(ids, lut, n_live) -> torch.Tensor:
     if ids.is_cuda:
         return kernels.table_lookup_cuda(ids, lut, n_live)
     return table_lookup_reference(ids, lut, n_live)
+
+
+def plane_sums_reference(ids, payload, n_live, *, table_cap) -> torch.Tensor:
+    """Plain PyTorch version of :func:`plane_sums`."""
+    n, cols = payload.shape
+    if not 1 <= cols <= kernels.SEGSUM_MAX_COLS:
+        raise ValueError(f"plane_sums: payload must be [n, 1..128], got "
+                         f"{tuple(payload.shape)}")
+    cap128 = kernels.ceil128(table_cap)
+    bound = min(kernels.ceil128(n_live), cap128)
+    out = torch.zeros((cap128, cols), dtype=torch.float32, device=ids.device)
+    live = (ids >= 0) & (ids < bound)
+    if bound == 0 or not bool(live.any()):
+        return out
+    rows = torch.nonzero(live)[:, 0]
+    nblk = -(-n // kernels.SEGSUM_ROWS)
+    out[:bound] = block_order_sums(rows // kernels.SEGSUM_ROWS,
+                                   ids[rows].long(), payload[rows].float(),
+                                   nblk, bound)
+    return out
+
+
+def plane_sums(ids, payload, n_live, *, table_cap) -> torch.Tensor:
+    """Segment-sum ``payload`` rows by integer id into a small table.
+
+    Args:
+        ids: int32[n]; a row counts iff 0 ≤ id < ceil128(n_live), capped
+            at the table (rows the caller wants excluded carry an id at or
+            above that bound, or below 0).
+        payload: f32[n, cols], 1 ≤ cols ≤ 128.
+        n_live: live-id bound (host int).
+        table_cap: table capacity, rounded up to 128.
+
+    Returns f32[cap128, cols]: row t is the sum of the payload rows with
+    id t (zero at and above the live bound).  CUDA tensors launch the
+    CUDA kernel, CPU tensors run :func:`plane_sums_reference`.
+    """
+    if ids.is_cuda:
+        return kernels.plane_sums_cuda(ids, payload, n_live,
+                                       table_cap=table_cap)
+    return plane_sums_reference(ids, payload, n_live, table_cap=table_cap)

@@ -26,13 +26,17 @@ Every ``knn_method`` runs:
   exact kNN graph → gather normals → graph propagation, in the input
   order; "pallas" computes the kNN on kernel #14.
 
-``segment_files`` (multi-scan with the ortho render) raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``segment_files`` is the multi-scan pipeline (BASELINE config 5): a
+reader thread prefetches scans, the main thread runs the device
+pipeline, a writer thread fetches, colorizes and writes each labeled PLY
+and, with ``render_dir``, the three ortho PNGs (``raster/ortho.py``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -58,6 +62,7 @@ from buildingsegment_tpu_torch.ops.knn import knn
 from buildingsegment_tpu_torch.ops.normals import estimate_normals
 from buildingsegment_tpu_torch.ops.pallas_knn import knn_pallas
 from buildingsegment_tpu_torch.ops.stats_sweep import knn_normals_window_stats
+from buildingsegment_tpu_torch.raster.ortho import dispatch_ortho, finish_ortho
 from buildingsegment_tpu_torch.seg.coarse import segment_planes_multigrid
 from buildingsegment_tpu_torch.seg.colorize import colorize_planes
 from buildingsegment_tpu_torch.seg.region_grow import segment_planes
@@ -95,6 +100,11 @@ class PipelineOutput:
     num_sweeps: int = 0
     host_syncs: int = 0
     diagnostics: dict = dataclasses.field(default_factory=dict)
+    # the run's shifted positions int32[C, 3] in input order (padding rows
+    # hold PAD_COORD) and mask bool[C], on the run's device: the raster
+    # reads them without a re-upload (None on segment_files' outputs)
+    device_shifted: Optional[torch.Tensor] = None
+    device_mask: Optional[torch.Tensor] = None
 
 
 def run_device_pipeline(
@@ -294,27 +304,22 @@ def _prove_spacing(config: PipelineConfig, shifted_h) -> PipelineConfig:
     return dataclasses.replace(config, spacing_hint_mm=hint)
 
 
-def segment_cloud(
-    cloud: HostPointCloud,
-    config: PipelineConfig = DEFAULT_CONFIG,
-    *,
-    device="cuda",
-    signed_normals: bool = False,
-) -> PipelineOutput:
-    """Segment an in-memory cloud on ``device``; returns the labeled
-    output + plane table."""
-    dev = torch.device(device)
-    t0 = time.perf_counter()
-    timings = {}
-    cloud = _maybe_dedup(cloud, config)
+def _upload(cloud: HostPointCloud, config: PipelineConfig, dev):
+    """Host bbox shift, padded upload and the proven hints.  Returns
+    (batch, shifted_host, lo_host, config with the hints); the upload is
+    complete on return."""
     batch, shifted_h, lo_h = _prepare_upload(cloud, config, dev)
     config = _prove_morton_small(config, shifted_h)
     config = _prove_spacing(config, shifted_h)
     synchronize(dev)
-    t1 = time.perf_counter()
-    timings["host_to_device"] = t1 - t0
+    return batch, shifted_h, lo_h, config
 
-    _shifted, _lo, seg = run_device_pipeline(
+
+def _run_device(batch: PointBatch, config: PipelineConfig,
+                signed_normals: bool, timings: dict):
+    """``run_device_pipeline`` on the batch under ``config``; returns
+    (shifted positions, SegmentationResult)."""
+    shifted, _lo, seg = run_device_pipeline(
         batch.positions, batch.mask,
         k_search=max(config.knn_k_pad, config.normal_max_nn),
         knn_k=config.knn_k,
@@ -340,9 +345,14 @@ def segment_cloud(
         spacing_hint_mm=config.spacing_hint_mm,
         timings=timings,
     )
-    t2 = time.perf_counter()
-    timings["device_pipeline"] = t2 - t1
+    return shifted, seg
 
+
+def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, config,
+                   timings, t0) -> PipelineOutput:
+    """Fetch the labels and the plane table, colorize; ``timings["total"]``
+    runs from ``t0``."""
+    t2 = time.perf_counter()
     n = cloud.count
     num_planes = seg.num_planes
     plane_idx = seg.plane_idx[:n].cpu().numpy().astype(np.int32)
@@ -387,7 +397,32 @@ def segment_cloud(
             "planes_over_capacity": int(diag[2]),
             "hit_max_sweeps": int(diag[3]),
         },
+        device_shifted=shifted,
+        device_mask=mask,
     )
+
+
+def segment_cloud(
+    cloud: HostPointCloud,
+    config: PipelineConfig = DEFAULT_CONFIG,
+    *,
+    device="cuda",
+    signed_normals: bool = False,
+) -> PipelineOutput:
+    """Segment an in-memory cloud on ``device``; returns the labeled
+    output + plane table."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    timings = {}
+    cloud = _maybe_dedup(cloud, config)
+    batch, shifted_h, lo_h, config = _upload(cloud, config, dev)
+    t1 = time.perf_counter()
+    timings["host_to_device"] = t1 - t0
+
+    shifted, seg = _run_device(batch, config, signed_normals, timings)
+    timings["device_pipeline"] = time.perf_counter() - t1
+    return _finish_output(cloud, shifted_h, lo_h, shifted, batch.mask, seg,
+                          config, timings, t0)
 
 
 def segment_file(
@@ -423,9 +458,114 @@ def segment_file(
     return out
 
 
-def segment_files(*args, **kwargs):
-    """Multi-scan pipeline with ortho rendering — not in this slice."""
-    raise NotImplementedError(
-        "multi-scan segment_files and the ortho render are later slices "
-        "of the port (ROADMAP.md: 'raster with #8', 'bench and profiling')"
-    )
+def _bucket_capacity(n: int, config: PipelineConfig) -> int:
+    """Round capacity to an eighth-octave bucket ≥ padded_count.
+
+    Buckets are 2^k × {1, 1.125, 1.25, ..., 1.875}, each re-aligned to
+    ``pad_to_multiple``: at most ~12.5% padding at scale.  In the JAX
+    package the buckets let scans share one compiled program; the port
+    keeps them because the capacity decides the padding, and so which
+    rows the multigrid groups hold: a multi-scan run labels a scan as
+    ``segment_cloud`` does at the same capacity.
+    """
+    cap = config.padded_count(n)
+    octave = 1 << max(cap.bit_length() - 1, 3)
+    for num in range(8, 17):
+        bucket = octave // 8 * num
+        if bucket >= cap:
+            break
+    # re-align to the capacity multiple (octave//8 below pad_to_multiple)
+    bucket = config.padded_count(bucket)
+    return max(bucket, config.pad_to_multiple)
+
+
+def segment_files(
+    input_paths,
+    output_paths,
+    config: PipelineConfig = DEFAULT_CONFIG,
+    *,
+    device="cuda",
+    signed_normals: bool = False,
+    render_dir: Optional[str] = None,
+) -> list:
+    """Multi-scan pipeline (BASELINE config 5): segment each scan on
+    ``device``, colorize, write the labeled PLYs and, with ``render_dir``,
+    the three ortho PNGs of each scan into ``render_dir/<scan name>/``.
+
+    Each scan is padded to its :func:`_bucket_capacity`.  Host work
+    overlaps the device from both sides: a reader thread decodes and
+    uploads up to two scans ahead, the main thread runs the device
+    pipeline, and a writer thread queues scan i's raster, fetches its
+    labels, colorizes, writes its PLY and encodes its PNGs while the main
+    thread runs scan i+1.  All threads use the device's default stream.
+    Returns one :class:`PipelineOutput` per scan, in input order, without
+    its device tensors (``device_shifted``/``device_mask`` are None): the
+    writer frees them once the scan is written.
+    """
+    input_paths = list(input_paths)
+    output_paths = list(output_paths)
+    if len(input_paths) != len(output_paths):
+        raise ValueError(f"{len(input_paths)} inputs but "
+                         f"{len(output_paths)} outputs")
+    dev = torch.device(device)
+
+    def load_scan(path):
+        """Reader thread: decode, dedup, bucket, upload, prove the hints.
+        ``_upload`` synchronizes, so the batch is on the device before
+        the main thread reads it."""
+        t0 = time.perf_counter()
+        cloud = read_ply(path, position_scale=config.position_scale)
+        cloud = _maybe_dedup(cloud, config)
+        cfg = dataclasses.replace(
+            config, pad_to_multiple=_bucket_capacity(cloud.count, config))
+        batch, shifted_h, lo_h, cfg = _upload(cloud, cfg, dev)
+        return cloud, cfg, batch, shifted_h, lo_h, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as rpool, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as wpool:
+        pending = [rpool.submit(load_scan, p) for p in input_paths[:2]]
+        writes = []
+        for i, (in_path, out_path) in enumerate(zip(input_paths,
+                                                    output_paths)):
+            cloud, cfg, batch, shifted_h, lo_h, t_load = pending[i].result()
+            pending[i] = None  # the batch lives only as long as its scan
+            if i + 2 < len(input_paths):
+                pending.append(rpool.submit(load_scan, input_paths[i + 2]))
+            t0 = time.perf_counter()
+            timings = {"host_to_device": t_load}
+            shifted, seg = _run_device(batch, cfg, signed_normals, timings)
+            timings["device_pipeline"] = time.perf_counter() - t0
+            writes.append(wpool.submit(
+                _write_scan, cloud, shifted_h, lo_h, shifted, batch.mask,
+                seg, cfg, timings, t0, in_path, out_path, render_dir,
+            ))
+        return [w.result() for w in writes]
+
+
+def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, cfg, timings,
+                t0, in_path, out_path, render_dir) -> PipelineOutput:
+    """Writer thread: queue the raster (it reuses the positions on the
+    device), fetch and colorize, write the labeled PLY, then fetch the
+    rasters and write the PNGs.  ``cfg`` is the scan's configuration (the
+    caller's, with the scan's capacity and hints)."""
+    rasters = None
+    if render_dir is not None:
+        t = time.perf_counter()
+        rasters = dispatch_ortho(shifted_h, shifted, mask, cfg)
+        t_render = time.perf_counter() - t
+    out = _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, cfg,
+                         timings, t0)
+    t = time.perf_counter()
+    write_ply(out.cloud, out_path, position_scale=cfg.output_scale,
+              ascii=not cfg.output_binary)
+    out.timings["write_ply"] = time.perf_counter() - t
+    if rasters is not None:
+        t = time.perf_counter()
+        base = os.path.splitext(os.path.basename(in_path))[0]
+        finish_ortho(rasters, os.path.join(render_dir, base))
+        out.timings["render"] = t_render + time.perf_counter() - t
+    # the raster was their last reader: a batch of thousands of scans
+    # would otherwise hold every scan's positions on the device (~15 MB a
+    # 1M-point scan) until it ends
+    out.device_shifted = out.device_mask = None
+    return out

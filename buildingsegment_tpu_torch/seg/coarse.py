@@ -41,12 +41,12 @@ from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
 from buildingsegment_tpu_torch.ops.segsum import (
     plane_payload_moment_sums,
+    row_order_sums,
     table_lookup,
 )
 from buildingsegment_tpu_torch.ops.window_sweep import refine_sweep
 from buildingsegment_tpu_torch.seg.region_grow import (
     SegmentationResult,
-    _segment_sum,
     segment_planes,
     window_seeds,
 )
@@ -315,7 +315,7 @@ def segment_planes_multigrid(
     for _ in range(MERGE_JUMPS):
         parent = torch.minimum(parent, parent[parent])
     del ok_pair, r2m, num, mm, nm3, di3, dj3, q3, d2, inplane2, reach
-    acc = _segment_sum(parent, acc, L)
+    acc = row_order_sums(parent, acc, L)
 
     # flatness per merged root: only a flat root adopts holes
     cnt_r = acc[:, 0]
@@ -333,7 +333,7 @@ def segment_planes_multigrid(
         + 2.0 * acc_m[:, 5] * nr_f[:, 1] * nr_f[:, 2]
     )
     off_f = _dot3(c_t - cr_f, nr_f)
-    flat_num = _segment_sum(
+    flat_num = row_order_sums(
         parent, (r2n_f + cnt_o * off_f * off_f)[:, None], L)[:, 0]
     flat_ok = flat_num / torch.clamp_min(cnt_r, 1.0) <= (
         0.25 * th_thickness) ** 2

@@ -49,6 +49,7 @@ import torch
 from buildingsegment_tpu_torch.ops.compact_sweep import COMPACT_L, compact_sweep
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
+from buildingsegment_tpu_torch.ops.segsum import row_order_sums
 from buildingsegment_tpu_torch.ops.window_sweep import label_sweep, seed_sweep
 from buildingsegment_tpu_torch.utils.device import synchronize
 
@@ -132,16 +133,6 @@ def _acc_models(rows: torch.Tensor):
     ln = torch.sqrt(torch.clamp_min(_sum3(sn * sn), 1e-20))[..., None]
     r = torch.sqrt(torch.clamp_min(sq - _sum3(c * c), 0.0))
     return sn / ln, c, r, cnt_a
-
-
-def _segment_sum(idx: torch.Tensor, rows: torch.Tensor, size: int):
-    """[size, C] per-id sums of rows [N, C], each id's rows added in row
-    order: accumulating ``index_put_`` runs sequentially on the CPU and
-    sorts stably on the card, so the sums do not change from run to run
-    (``index_add_`` uses float atomics on the card)."""
-    out = torch.zeros((size, rows.shape[1]), dtype=rows.dtype,
-                      device=rows.device)
-    return out.index_put_((idx,), rows, accumulate=True)
 
 
 def _f32sq(x: float) -> float:
@@ -385,7 +376,7 @@ def segment_planes(
         else:
             tgt = torch.where(valid, label, ng).long()
             payload = stats_payload(label, valid, with_sq=True)
-            acc = _segment_sum(tgt, payload, ng + 1)[:ng]
+            acc = row_order_sums(tgt, payload, ng + 1)[:ng]
             model_n, model_c, _r, cnt = _acc_models(acc)
             flag = cnt > 0
 
@@ -421,7 +412,7 @@ def segment_planes(
         indexed by label value."""
         valid = label < inf
         tgt = torch.where(valid, label, ng).long()
-        acc = _segment_sum(tgt, stats_payload(label, valid, with_sq=False),
+        acc = row_order_sums(tgt, stats_payload(label, valid, with_sq=False),
                            ng + 1)[:ng]
         model_n, model_c, _r, _cnt = _acc_models(acc)
         return model_n, model_c
@@ -473,7 +464,7 @@ def segment_planes(
         cap = min(max_planes, ng)
         valid = label < inf
         tgt = torch.where(valid, label, ng).long()
-        acc = _segment_sum(tgt, stats_payload(label, valid, with_sq=True),
+        acc = row_order_sums(tgt, stats_payload(label, valid, with_sq=True),
                            ng + 1)[:ng]
         rank, top_lab, live = compact_slots(acc[:, 0] > 0, cap)
         used = max(min(cap, live_bound), 1)
@@ -624,7 +615,7 @@ def segment_planes(
     in_table = (plane_id > 0) & (plane_id <= max_planes)
     seg = torch.where(in_table, plane_id - 1, max_planes).long()
     fin_payload = stats_payload(label, plane_id > 0, with_sq=False)
-    acc_fin = _segment_sum(seg, fin_payload, max_planes + 1)
+    acc_fin = row_order_sums(seg, fin_payload, max_planes + 1)
     plane_normal, plane_center, _r_fin, cnt_f = _acc_models(acc_fin[:max_planes])
     cnt = cnt_f.to(torch.int32)
     plane_normal = torch.where((cnt > 0)[:, None], plane_normal, 0.0)

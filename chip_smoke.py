@@ -46,18 +46,44 @@ Phases, in order; the first failure exits non-zero:
    the whole call and the kernel are timed, and 32 sampled query tiles
    are held bit for bit against the plain version computed for those
    queries only (the whole plain run is O(N²));
-9. the CLI once, as a subprocess: ``-a=scene.ply -s=out.ply --knn-method
-   pallas --json-summary`` must exit 0 with the plane count of step 6.
+9. the CLI as a subprocess: ``-a=scene.ply -s=out.ply --knn-method
+   pallas --json-summary`` must exit 0 with the plane count of step 6;
+   ``--render-dir R --extract-contours`` on the same scene must write the
+   three PNGs, both contour overlays and a non-empty ``csa.obj``;
+   ``--batch`` on a two-scan directory must exit 0;
+10. the multi-scan render path at BASELINE config 5's size (the render
+   path): four scans built as bench.py builds them (the house at 25 mm
+   spacing, seeds 0-3, ~1.08M points each, capacity 1,179,648), written
+   in metres, through ``segment_files(..., render_dir=...)`` under
+   ``DEFAULT_CONFIG``: a warm-up run records every call of every kernel
+   of the path (the default path's eight at this capacity and
+   ``plane_sums``, kernel #8, the ground histogram), each held bit for
+   bit against its plain version and timed beside its bound (#8 also
+   beside ``index_add_``); then the measured run, with launch counts
+   reset: every kernel of the default path and ``plane_sums`` once per
+   scan must launch; no output keeps its positions on the card; each PLY
+   reads back with its point count; each scan's labels and planes equal
+   ``segment_cloud`` of the scan at the same capacity; each scan's
+   directory holds the three PNGs; scan 0's card rasters (from the
+   positions its ``segment_cloud`` run left on the card) equal its CPU
+   rasters (plain versions, the same positions moved to the CPU) within
+   the sums' reordering bound, and the PNGs agree within 1 per pixel.
+   Its wall time gives the config-5 Mpts/s; ``render_ortho_views`` on
+   scan 0 gives the render's own span.
 
 The last three lines of stdout are the card line, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 SCENE = dict(seed=0, spacing_mm=55.0, width_mm=12000.0, depth_mm=9000.0,
              wall_h_mm=6000.0, ridge_h_mm=8000.0, noise_mm=8.0)
@@ -70,6 +96,11 @@ AUTO_POINTS = 60914
 # the BASELINE config-2 shape (~1M rows): the house at 25.4 mm spacing
 CONFIG2_SCENE = dict(SCENE, spacing_mm=25.4)
 CONFIG2_POINTS = 1046391
+# BASELINE config 5: four scans as bench.py builds them (seeds 0-3)
+MULTISCAN_SCENE = dict(SCENE, spacing_mm=25.0)
+MULTISCAN_SCANS = 4
+MULTISCAN_CAPACITY = 1179648
+RENDER_PNGS = ("平均高度.png", "像素数量.png", "像素数量+高度.png")
 # (planes, least truth agreement) per path: the JAX package's CPU result
 # on its scene, agreement − 0.01
 EXPECT = {"default": (7, 0.9723), "single_level": (8, 0.9633),
@@ -90,6 +121,7 @@ KERNELS = {
     "table_lookup": ("segsum.cu", "segsum.py:141", 50, 5),
     "plane_adopt": ("adopt.cu", "adopt.py:87", 50, 3),
     "knn_exact": ("knn_exact.cu", "pallas_knn.py:95", 20, 1),
+    "plane_sums": ("segsum.cu", "segsum.py:41", 50, 3),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -99,13 +131,17 @@ PATH_KERNELS = {
     "single_level": ("label_sweep", "compact_sweep"),
     "pallas": ("knn_exact",),
 }
+# the multi-scan render path runs the default path and the raster
+PATH_KERNELS["render"] = PATH_KERNELS["default"] + ("plane_sums",)
 # the path whose calls and launches each kernel reports
 MAIN_PATH = {name: path for path in ("single_level", "pallas", "default")
              for name in PATH_KERNELS[path]}
+MAIN_PATH["plane_sums"] = "render"
 # the wrapper argument whose length is the call's row count
 ROWS_ARG = {"stats_sweep": 1, "seed_sweep": 2, "label_sweep": 4,
             "compact_sweep": 4, "refine_sweep": 2, "payload_moment_sums": 0,
-            "table_lookup": 0, "plane_adopt": 1, "knn_exact": 1}
+            "table_lookup": 0, "plane_adopt": 1, "knn_exact": 1,
+            "plane_sums": 0}
 
 
 def fail(msg):
@@ -230,6 +266,14 @@ def work(torch, name, args, kw, out):
         ops = live * 23
     elif name == "table_lookup":
         ops = 0
+    elif name == "plane_sums":
+        ids, payload = args[0], args[1]
+        live_bound = min(-(-args[2] // 128), -(-kw["table_cap"] // 128)) * 128
+        live = int(((ids >= 0) & (ids < live_bound)).sum())
+        # the payload is read for live rows only; one add a live element
+        moved -= (ids.shape[0] - live) * payload.shape[1] * 4
+        ops = live * payload.shape[1]
+        note = f"; {live} live rows of {ids.shape[0]}"
     elif name == "knn_exact":
         # per pair an exact scan must test: d² (8) and one compare; the
         # kernel's own list rescans are not the function's work
@@ -261,6 +305,22 @@ def knn_library_ms(torch, args, kw, reps=2):
     def run():
         for q0 in range(0, p.shape[0], 4096):
             torch.cdist(p[q0:q0 + 4096], p).topk(kk + 1, largest=False)
+    return cuda_ms(torch, run, reps)
+
+
+def segsum_library_ms(torch, args, kw, reps=50):
+    """The yardstick of #8: one ``index_add_`` of the payload rows into a
+    zeroed table.  It computes the same function only where every id lies
+    inside the live bound (the histogram's ids do); else None."""
+    ids, payload, n_live = args
+    cap128 = -(-kw["table_cap"] // 128) * 128
+    bound = min(-(-n_live // 128) * 128, cap128)
+    if not bool(((ids >= 0) & (ids < bound)).all()):
+        return None
+
+    def run():
+        torch.zeros((cap128, payload.shape[1]), dtype=torch.float32,
+                    device=ids.device).index_add_(0, ids, payload)
     return cuda_ms(torch, run, reps)
 
 
@@ -311,6 +371,284 @@ def clone(torch, x):
     return x
 
 
+@contextlib.contextmanager
+def spying(torch, hooks, seen):
+    """Within the block, every call of a hooked wrapper appends (rows, a
+    copy of its arguments, its keywords) to ``seen[name]`` (list appends
+    are atomic, so the multi-scan writer thread may call too)."""
+    def spy(name, fn):
+        def call(*args, **kw):
+            n = args[ROWS_ARG[name]].shape[0]
+            seen.setdefault(name, []).append(
+                (n, clone(torch, args), dict(kw)))
+            return fn(*args, **kw)
+        return call
+
+    orig = {k: getattr(mod, attr) for k, (mod, attr, _) in hooks.items()}
+    for k, (mod, attr, _) in hooks.items():
+        setattr(mod, attr, spy(k, orig[k]))
+    try:
+        yield
+    finally:
+        for k, (mod, attr, _) in hooks.items():
+            setattr(mod, attr, orig[k])
+
+
+def hold_kernel(torch, name, path, calls, cuda_fn, plain_fn, card):
+    """Every captured call of one kernel against its plain version, bit for
+    bit; the first call at the largest row count timed beside its bound
+    and, where there is one, the library call.  Returns the kernel's row."""
+    err = 0.0
+    for n, args, kw in calls:
+        k_out = cuda_fn(*args, **kw)
+        p_out = plain_fn(*args, **kw)
+        torch.cuda.synchronize()
+        k_t = k_out if isinstance(k_out, tuple) else (k_out,)
+        p_t = p_out if isinstance(p_out, tuple) else (p_out,)
+        e = max_abs_err(torch, k_t, p_t)
+        if not all(torch.equal(a, b) for a, b in zip(k_t, p_t)):
+            fail(f"{name} ({path} path, {n} rows, kw {kw}): "
+                 f"kernel != plain version (max abs err {e})")
+        err = max(err, e)
+    big = max(n for n, _a, _k in calls)
+    n, args, kw = next(c for c in calls if c[0] == big)
+    k_out = cuda_fn(*args, **kw)
+    reps, plain_reps = KERNELS[name][2:]
+    ms = cuda_ms(torch, lambda: cuda_fn(*args, **kw), reps)
+    plain_ms = cuda_ms(torch, lambda: plain_fn(*args, **kw), plain_reps)
+    moved, ops, note = work(torch, name, args, kw, k_out)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    if name == "knn_exact":
+        library_ms = knn_library_ms(torch, args, kw)
+    elif name == "plane_sums":
+        library_ms = segsum_library_ms(torch, args, kw)
+    else:
+        library_ms = None
+    row = dict(rows=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=library_ms)
+    print(f"{name} ({path} path): {len(calls)} calls, kernel == plain on "
+          f"each; rows={n}: {ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+          f"{library_ms} ms, bound {row['bound_ms']:.6f} ms by "
+          f"{row['bound_by']} ({moved} B, {ops} ops{note}) ({card})")
+    return row
+
+
+def cli_render(tmp, src):
+    """The CLI's render with contours on the slice scene, and ``--batch``
+    on a directory of two scans, as subprocesses on the card."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def run(*argv):
+        res = subprocess.run(
+            [sys.executable, "-m", "buildingsegment_tpu_torch.cli", *argv],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"CLI {argv} exited {res.returncode}: {res.stderr[-2000:]}")
+        return res.stdout
+
+    render = os.path.join(tmp, "cli_render")
+    run(f"-a={src}", f"-s={os.path.join(tmp, 'cli_render.ply')}",
+        "--render-dir", render, "--extract-contours")
+    want = set(RENDER_PNGS) | {"extracted_contours.png",
+                               "extracted_contours_flip.png", "csa.obj"}
+    got = set(os.listdir(render))
+    if not want <= got:
+        fail(f"CLI --render-dir --extract-contours wrote {sorted(got)}")
+    obj = open(os.path.join(render, "csa.obj")).read()
+    if "\nf " not in obj:
+        fail("CLI --extract-contours wrote a csa.obj without faces")
+    print(f"CLI --render-dir --extract-contours: rc 0, {sorted(got)}, "
+          f"csa.obj {len(obj)} bytes")
+
+    in_dir, out_dir = os.path.join(tmp, "batch_in"), os.path.join(tmp,
+                                                                  "batch_out")
+    os.makedirs(in_dir)
+    for name in ("a.ply", "b.ply"):
+        shutil.copy(src, os.path.join(in_dir, name))
+    line = run("--batch", in_dir, out_dir).strip().splitlines()[-1]
+    if not line.startswith("2 scans, ") or sorted(os.listdir(out_dir)) != [
+            "a.ply", "b.ply"]:
+        fail(f"CLI --batch printed {line!r}, wrote {os.listdir(out_dir)}")
+    print(f"CLI --batch: rc 0, {line}")
+
+
+def splat_terms(torch, pos, mask, th, width, bin_size):
+    """The most corner contributions any raster cell sums (the splat's
+    addends of one cell)."""
+    p = pos[mask & (pos[:, 2] >= th)].long()
+    cell = (p[:, 1] // bin_size) * width + p[:, 0] // bin_size
+    idx = torch.cat([cell, cell + 1, cell + width, cell + width + 1])
+    return int(torch.bincount(idx).max())
+
+
+def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches):
+    """BASELINE config 5 on the card: four ~1.08M-point scans through
+    ``segment_files`` with the render; see the module docstring, step 10.
+    Adds #8's row to ``results`` and the run's counts to ``launches``."""
+    from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.io.png import read_png
+    from buildingsegment_tpu_torch.pipeline import (
+        DEFAULT_CONFIG, HostPointCloud, _bucket_capacity, read_ply,
+        segment_cloud, segment_files, write_ply,
+    )
+    from buildingsegment_tpu_torch.raster import ortho
+    from buildingsegment_tpu_torch.utils import (
+        bij_agreement, make_building_cloud,
+    )
+
+    cfg = DEFAULT_CONFIG
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs, dsts, truths, counts = [], [], [], []
+        for seed in range(MULTISCAN_SCANS):
+            spts, struth = make_building_cloud(**dict(MULTISCAN_SCENE,
+                                                      seed=seed))
+            src = os.path.join(tmp, f"scan{seed}.ply")
+            # metres in the file, as bench.py writes them
+            write_ply(HostPointCloud(positions=spts), src,
+                      position_scale=1e-3)
+            srcs.append(src)
+            dsts.append(os.path.join(tmp, f"out{seed}.ply"))
+            truths.append(struth)
+            counts.append(len(spts))
+        caps = [_bucket_capacity(n, cfg) for n in counts]
+        if set(caps) != {MULTISCAN_CAPACITY}:
+            fail(f"config-5 scans of {counts} points bucket to {caps}, "
+                 f"expected {MULTISCAN_CAPACITY}")
+        render = os.path.join(tmp, "render")
+
+        # warm-up, recording every call of every kernel of the path: the
+        # default path's eight at this capacity and #8
+        seen = {}
+        with spying(torch, {k: hooks[k] for k in PATH_KERNELS["render"]},
+                    seen):
+            segment_files(srcs, dsts, cfg, device="cuda", render_dir=render)
+        missing = [k for k in PATH_KERNELS["render"] if k not in seen]
+        if missing:
+            fail(f"multi-scan warm-up did not reach {missing}")
+        if len(seen["plane_sums"]) != MULTISCAN_SCANS:
+            fail(f"multi-scan warm-up called plane_sums "
+                 f"{len(seen['plane_sums'])} times")
+        print(f"warm-up run, render: calls "
+              f"{ {k: len(v) for k, v in seen.items()} }")
+        for name in PATH_KERNELS["render"]:
+            results[("render", name)] = hold_kernel(
+                torch, name, "render", seen.pop(name), cuda_fns[name],
+                hooks[name][2], card)
+        del seen
+        shutil.rmtree(render)
+
+        # the measured run
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = segment_files(srcs, dsts, cfg, device="cuda",
+                             render_dir=render)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["render"] = dict(kernels.launch_counts)
+        for name in PATH_KERNELS["render"]:
+            if launches["render"][name] == 0:
+                fail(f"multi-scan render path never launched {name}")
+        if launches["render"]["plane_sums"] != MULTISCAN_SCANS:
+            fail(f"plane_sums launched {launches['render']['plane_sums']} "
+                 f"times for {MULTISCAN_SCANS} scans")
+        if any(o.device_shifted is not None or o.device_mask is not None
+               for o in outs):
+            fail("segment_files kept a scan's positions on the card")
+        total = sum(counts)
+        print(f"multi-scan (config 5): {MULTISCAN_SCANS} scans, {total} "
+              f"points in {wall:.4f} s = {total / wall / 1e6:.4f} Mpts/s, "
+              f"launches {launches['render']} ({card})")
+
+        per_scan = []
+        for seed, (src, dst, out) in enumerate(zip(srcs, dsts, outs)):
+            if read_ply(dst).count != counts[seed]:
+                fail(f"scan {seed}: labeled PLY does not hold "
+                     f"{counts[seed]} points")
+            one = segment_cloud(
+                read_ply(src, position_scale=cfg.position_scale),
+                dataclasses.replace(cfg, pad_to_multiple=caps[seed]),
+                device="cuda")
+            if not (one.num_planes == out.num_planes
+                    and np.array_equal(one.plane_idx, out.plane_idx)
+                    and np.array_equal(one.plane_counts, out.plane_counts)):
+                fail(f"scan {seed}: segment_files gave {out.num_planes} "
+                     f"planes, segment_cloud {one.num_planes}, or the "
+                     f"labels differ")
+            if seed == 0:
+                one0 = one  # its positions stay on the card for the raster
+            pngs = sorted(os.listdir(os.path.join(render, f"scan{seed}")))
+            if pngs != sorted(RENDER_PNGS):
+                fail(f"scan {seed}: render directory holds {pngs}")
+            bij = bij_agreement(truths[seed], out.plane_idx)
+            per_scan.append({
+                "points": counts[seed], "planes": out.num_planes,
+                "truth_bij": round(bij, 6), "diagnostics": out.diagnostics,
+                "stages_s": {k: round(v, 6) for k, v in out.timings.items()},
+            })
+            print(f"scan {seed}: {counts[seed]} points, {out.num_planes} "
+                  f"planes (== segment_cloud), truth agreement {bij:.6f}, "
+                  f"stages {per_scan[-1]['stages_s']}")
+
+        # scan 0: the card's rasters against the CPU's (plain versions),
+        # from the positions segment_cloud left on the card (segment_files
+        # frees its own once a scan is written)
+        out0 = one0
+        ext = tuple(int(e) for e in out0.cloud.positions.max(axis=0))
+        on_card = ortho.dispatch_ortho(out0.cloud.positions,
+                                       out0.device_shifted, out0.device_mask,
+                                       cfg).cpu()
+        on_cpu = ortho.dispatch_ortho(out0.cloud.positions,
+                                      out0.device_shifted.cpu(),
+                                      out0.device_mask.cpu(), cfg)
+        th = ortho.ground_threshold(out0.device_shifted, out0.device_mask,
+                                    ext[2], bin_height=cfg.raster_bin_height)
+        terms = splat_terms(torch, out0.device_shifted, out0.device_mask, th,
+                            ext[0] // cfg.raster_bin + 2, cfg.raster_bin)
+        # the atomics reorder a cell's sum of ``terms`` non-negative
+        # addends: each order lies within (terms − 1)·2^-24 of the exact
+        # sum, so two orders within twice that, and a ratio of two sums
+        # (the mean height) within four times that plus its rounding
+        tol = 4 * terms * 2.0 ** -24 + 2.0 ** -23
+        err = float(((on_card - on_cpu).abs()
+                     / on_cpu.abs().clamp_min(1.0)).max())
+        if on_card.shape != on_cpu.shape or err > tol:
+            fail(f"scan 0 rasters: card vs CPU relative error {err} > {tol}")
+        cpu_dir = os.path.join(tmp, "cpu0")
+        ortho.finish_ortho(on_cpu, cpu_dir)
+        png_diff = max(
+            int(np.abs(read_png(os.path.join(render, "scan0", name))
+                       .astype(int)
+                       - read_png(os.path.join(cpu_dir, name)).astype(int))
+                .max())
+            for name in RENDER_PNGS)
+        if png_diff > 1:
+            fail(f"scan 0 PNGs: card vs CPU differ by {png_diff} in a pixel")
+        print(f"scan 0 rasters {tuple(on_card.shape)}: card vs CPU relative "
+              f"error {err:.3g} <= {tol:.3g} (cells sum <= {terms} terms), "
+              f"PNGs within {png_diff}")
+
+        # the render's own span on scan 0, three runs
+        spans = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ortho.render_ortho_views(out0, os.path.join(tmp, "span"), cfg)
+            spans.append(time.perf_counter() - t)
+        print(f"render_ortho_views on scan 0: {min(spans) * 1e3:.3f}–"
+              f"{max(spans) * 1e3:.3f} ms ({card})")
+    return {
+        "scans": MULTISCAN_SCANS, "points": total, "capacity": caps[0],
+        "wall_s": wall, "mpts_per_s": total / wall / 1e6,
+        "launches": launches["render"], "per_scan": per_scan,
+        "raster_rel_err": err, "raster_tol": tol, "png_max_diff": png_diff,
+        "render_span_s": [min(spans), max(spans)], "card": card,
+    }
+
+
 def main():
     import torch
 
@@ -333,6 +671,7 @@ def main():
         DEFAULT_CONFIG, HostPointCloud, PipelineConfig, read_ply,
         resolve_knn_method, segment_cloud, segment_file, write_ply,
     )
+    from buildingsegment_tpu_torch.raster import ortho
     from buildingsegment_tpu_torch.seg import coarse, region_grow
     from buildingsegment_tpu_torch.utils import (
         bij_agreement, make_building_cloud,
@@ -358,6 +697,7 @@ def main():
         "plane_adopt": (coarse, "plane_adopt", adopt.plane_adopt_reference),
         "knn_exact": (pallas_knn, "knn_exact",
                       pallas_knn.knn_exact_reference),
+        "plane_sums": (ortho, "plane_sums", segsum.plane_sums_reference),
     }
     cuda_fns = {
         "stats_sweep": kernels.stats_sweep_cuda,
@@ -369,6 +709,7 @@ def main():
         "table_lookup": kernels.table_lookup_cuda,
         "plane_adopt": kernels.plane_adopt_cuda,
         "knn_exact": kernels.knn_exact_cuda,
+        "plane_sums": kernels.plane_sums_cuda,
     }
 
     # 2. build
@@ -396,24 +737,8 @@ def main():
         captured = {path: {} for path in configs}
         for path, cfg in configs.items():
             seen = captured[path]
-
-            def spy(name, fn):
-                def call(*args, **kw):
-                    n = args[ROWS_ARG[name]].shape[0]
-                    seen.setdefault(name, []).append(
-                        (n, clone(torch, args), dict(kw)))
-                    return fn(*args, **kw)
-                return call
-
-            orig = {k: getattr(mod, attr) for k, (mod, attr, _) in
-                    hooks.items()}
-            for k, (mod, attr, _) in hooks.items():
-                setattr(mod, attr, spy(k, orig[k]))
-            try:
+            with spying(torch, hooks, seen):
                 warm = segment_file(src, dst, cfg, device="cuda")
-            finally:
-                for k, (mod, attr, _) in hooks.items():
-                    setattr(mod, attr, orig[k])
             missing = [k for k in PATH_KERNELS[path] if k not in seen]
             if missing:
                 fail(f"{path} path did not reach {missing}")
@@ -426,42 +751,9 @@ def main():
         results = {}
         for path, seen in captured.items():
             for name, calls in seen.items():
-                err = 0.0
-                for n, args, kw in calls:
-                    k_out = cuda_fns[name](*args, **kw)
-                    p_out = hooks[name][2](*args, **kw)
-                    torch.cuda.synchronize()
-                    k_t = k_out if isinstance(k_out, tuple) else (k_out,)
-                    p_t = p_out if isinstance(p_out, tuple) else (p_out,)
-                    e = max_abs_err(torch, k_t, p_t)
-                    if not all(torch.equal(a, b) for a, b in zip(k_t, p_t)):
-                        fail(f"{name} ({path} path, {n} rows, kw {kw}): "
-                             f"kernel != plain version (max abs err {e})")
-                    err = max(err, e)
-                big = max(n for n, _a, _k in calls)
-                n, args, kw = next(c for c in calls if c[0] == big)
-                k_out = cuda_fns[name](*args, **kw)
-                reps, plain_reps = KERNELS[name][2:]
-                ms = cuda_ms(torch, lambda: cuda_fns[name](*args, **kw), reps)
-                plain_ms = cuda_ms(torch, lambda: hooks[name][2](*args, **kw),
-                                   plain_reps)
-                moved, ops, note = work(torch, name, args, kw, k_out)
-                t_bytes = moved / HBM_BYTES_PER_S * 1e3
-                t_ops = ops / F32_OPS_PER_S * 1e3
-                library_ms = (knn_library_ms(torch, args, kw)
-                              if name == "knn_exact" else None)
-                results[(path, name)] = dict(
-                    rows=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=library_ms,
-                )
-                print(f"{name} ({path} path): {len(calls)} calls, kernel == "
-                      f"plain on each; rows={n}: {ms:.4f} ms vs plain "
-                      f"{plain_ms:.4f} ms, library {library_ms} ms, bound "
-                      f"{max(t_bytes, t_ops):.6f} ms by "
-                      f"{results[(path, name)]['bound_by']} ({moved} B, "
-                      f"{ops} ops{note}) ({card})")
+                results[(path, name)] = hold_kernel(
+                    torch, name, path, calls, cuda_fns[name], hooks[name][2],
+                    card)
         del captured
 
         # 5. small input: card (kernels) vs CPU (plain versions)
@@ -561,6 +853,7 @@ def main():
             fail(f"CLI gave {cli['planes']} planes, segment_file "
                  f"{summary['pallas']['planes']}")
         print(f"CLI --knn-method pallas: rc 0, {cli['planes']} planes")
+        cli_render(tmp, src)
 
     # 8. the config-2 shape: knn_pallas(k=16) at ~1M rows
     cpts, _ = make_building_cloud(**CONFIG2_SCENE)
@@ -607,9 +900,15 @@ def main():
           f"({config2['mpts_per_s']:.3f} Mpts/s), kernel {kernel_ms:.2f} ms; "
           f"32 sampled query tiles == plain ({card})")
 
+    del batch, shifted, order, spos, smask, calls8, args, got_d, got_i
+
+    # 10. BASELINE config 5: the multi-scan render path at full size
+    multiscan = multiscan_phase(torch, np, hooks, cuda_fns, card, results,
+                                launches)
+
     print(json.dumps({"points": len(pts), "card": card, "build_s": t_build,
                       "paths": summary, "stages_min_max_s": spread,
-                      "config2": config2}))
+                      "config2": config2, "multiscan": multiscan}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
         path = MAIN_PATH[name]

@@ -2,11 +2,16 @@
 
 The reference argv contract (``-x=path`` split on '='), a run through
 ``main([...], device="cpu")`` that writes a binary PLY and prints the
-JSON summary, and the refusals: no ``-a=`` → rc 2, and every flag of a
-path the port does not have yet → rc 2 naming its ROADMAP.md item.
+JSON summary, the render with contours (``--render-dir R
+--extract-contours``: the three PNGs, the two overlays, ``csa.obj``),
+multi-scan ``--batch`` (rc 1 on a directory without scans), and the
+refusals: no ``-a=`` → rc 2, and every flag of a path the port does not
+have yet → rc 2 naming its ROADMAP.md item.
 """
 
 import json
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -72,8 +77,51 @@ def test_missing_file(tmp_path, capsys):
     assert rc == 1 and "cannot open" in capsys.readouterr().err
 
 
+_RENDERS = ("平均高度.png", "像素数量.png", "像素数量+高度.png")
+
+
+def test_render_dir_and_contours(scan_file, tmp_path, capsys):
+    src, n = scan_file
+    render = tmp_path / "r"
+    rc = main([f"-a={src}", f"-s={tmp_path / 'out.ply'}", "--th-point-count",
+               "50", "--render-dir", str(render), "--extract-contours"],
+              device="cpu")
+    assert rc == 0 and f"{n} points" in capsys.readouterr().out
+    assert sorted(os.listdir(render)) == sorted(
+        _RENDERS + ("extracted_contours.png", "extracted_contours_flip.png",
+                    "csa.obj"))
+    obj = (render / "csa.obj").read_text()
+    assert "\nv " in obj and "\nf " in obj
+
+
+def test_batch_writes_every_scan(scan_file, tmp_path, capsys):
+    src, n = scan_file
+    in_dir, out_dir, render = (tmp_path / d for d in ("in", "out", "r"))
+    in_dir.mkdir()
+    for name in ("a.ply", "b.ply"):
+        shutil.copy(src, in_dir / name)
+    rc = main(["--batch", str(in_dir), str(out_dir), "--th-point-count",
+               "50", "--render-dir", str(render), "--json-summary"],
+              device="cpu")
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith(f"2 scans, {2 * n} points, ")
+    assert lines[0].endswith(" Mpoints/sec")
+    summary = json.loads(lines[-1])
+    assert summary["scans"] == 2 and summary["points"] == 2 * n
+    assert summary["planes"][0] == summary["planes"][1] >= 3
+    for name in ("a", "b"):
+        assert read_ply(str(out_dir / f"{name}.ply")).count == n
+        assert sorted(os.listdir(render / name)) == sorted(_RENDERS)
+
+
+def test_batch_empty_dir(tmp_path, capsys):
+    rc = main(["--batch", str(tmp_path), str(tmp_path / "out")],
+              device="cpu")
+    assert rc == 1 and "no .ply files" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("flag", [
-    ["--render-dir", "r"], ["--extract-contours"], ["--batch", "a", "b"],
     ["--golden"], ["--trace", "t"], ["--dump-stages", "s.npz"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_exit_2(flag, capsys):

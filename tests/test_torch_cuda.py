@@ -31,6 +31,7 @@ from buildingsegment_tpu_torch.ops.pallas_knn import (
 )
 from buildingsegment_tpu_torch.ops.segsum import (
     payload_moment_sums_reference,
+    plane_sums_reference,
     table_lookup_reference,
 )
 from buildingsegment_tpu_torch.ops.stats_sweep import stats_sweep_reference
@@ -262,6 +263,48 @@ def test_table_lookup_kernel_matches_plain(cuda):
         got = kernels.table_lookup_cuda(ids.to(cuda), lut.to(cuda), n_live)
         ref = table_lookup_reference(ids, lut, n_live)
         assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("cols", [1, 8])
+def test_plane_sums_kernel_matches_plain(cuda, cols):
+    """#8 against its plain version, on the card and on the CPU, bit for
+    bit: ids over a 300-row table with dead ones (negative, above the
+    live bound), 50,000 rows (not a multiple of the 1,024-row blocks)."""
+    g = torch.Generator(device="cpu").manual_seed(cols)
+    n = 50_000
+    ids = torch.randint(-3, 302, (n,), generator=g, dtype=torch.int32)
+    pay = torch.rand((n, cols), generator=g) * 100.0
+    pay[:, 0] = 1.0
+    for n_live in (0, 1, 130, 300):
+        before = kernels.launch_counts["plane_sums"]
+        got = kernels.plane_sums_cuda(ids.to(cuda), pay.to(cuda), n_live,
+                                      table_cap=300)
+        assert kernels.launch_counts["plane_sums"] == before + (n_live > 0)
+        on_card = plane_sums_reference(ids.to(cuda), pay.to(cuda), n_live,
+                                       table_cap=300)
+        on_cpu = plane_sums_reference(ids, pay, n_live, table_cap=300)
+        assert got.shape == (384, cols)
+        assert torch.equal(got, on_card) and torch.equal(got.cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("cols", [1, 3])
+def test_plane_sums_kernel_matches_plain_dense(cuda, cols):
+    """#8 on a dense histogram: 12 ids, so each holds some 85 rows of
+    every 1,024-row block, and float payloads whose sum depends on the
+    order, bit for bit against the plain version on the card and on the
+    CPU (one column is where the card's accumulating ``index_put_`` would
+    sum a run of equal ids out of row order)."""
+    g = torch.Generator(device="cpu").manual_seed(10 + cols)
+    n = 40_000
+    ids = torch.randint(0, 12, (n,), generator=g, dtype=torch.int32)
+    pay = torch.rand((n, cols), generator=g) * 1000.0 - 500.0
+    got = kernels.plane_sums_cuda(ids.to(cuda), pay.to(cuda), 12,
+                                  table_cap=12)
+    on_card = plane_sums_reference(ids.to(cuda), pay.to(cuda), 12,
+                                   table_cap=12)
+    on_cpu = plane_sums_reference(ids, pay, 12, table_cap=12)
+    assert got.shape == (128, cols)
+    assert torch.equal(got, on_card) and torch.equal(got.cpu(), on_cpu)
 
 
 @pytest.mark.parametrize("signed", [False, True])

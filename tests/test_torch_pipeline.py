@@ -6,8 +6,9 @@ single-level (``seg_group=1``) and multigrid (the default
 ``seg_group=4``, ``seg_levels=2``): the contract of
 tests/test_forced_tpu_path.py — the same plane count, cross agreement
 ≥ 0.99 and truth agreement within 0.01.  ``segment_file`` round-trips a
-binary PLY.  Multi-scan ``segment_files``, not ported yet, raises
-NotImplementedError.  (The exact-kNN methods: tests/test_torch_classic.py.)
+binary PLY.  Multi-scan ``segment_files`` refuses input and output
+lists of different lengths (its runs: tests/test_torch_multiscan.py; the
+exact-kNN methods: tests/test_torch_classic.py).
 """
 
 import os
@@ -101,8 +102,8 @@ def test_multigrid_config_runs(scene):
 
 
 def test_multiscan_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        segment_files(["a.ply"], ["b.ply"])
+    with pytest.raises(ValueError, match="2 inputs but 1 outputs"):
+        segment_files(["a.ply", "b.ply"], ["c.ply"], device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -114,6 +115,9 @@ def test_port_imports_no_jax():
         "import buildingsegment_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('raster', 'raster.ortho', 'raster.contours', 'io.png',\n"
+        "          'io.obj', 'ops.scatter', 'ops.segsum', 'cli'):\n"
+        "    assert 'buildingsegment_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'buildingsegment_tpu'))\n"
         "assert not bad, bad\n"
