@@ -1,11 +1,17 @@
 """Pipeline configuration — the port's copy of ``buildingsegment_tpu/config.py``.
 
 The fields and defaults are the JAX package's, so one configuration
-means the same run in both packages.  Fields that select a TPU kernel
-variant (``stats_rank_mode``, ``stats_store_offsets``, ``stats_sym``,
-``seg_seed_mode``) are kept for that equality; the port has one kernel
-per stage and does not read them.  ``knn_k_pad`` is read as the JAX
-package reads it: the exact-kNN paths search
+means the same run in both packages.  Of the fields that select a TPU
+kernel variant, the port reads ``stats_rank_mode`` and ``seg_seed_mode``:
+"mxu" selects the block-form stats and fine seed sweeps
+(``ops/stats_mxu.py``), which round differently from the exact ones;
+every other value the JAX package accepts gives the exact sweep, whose
+variants there are bit-identical.  ``stats_store_offsets`` and
+``stats_sym`` select bit-identical variants and are kept, unread, for
+the equality.  The JAX package's environment defaults of these fields
+(``BST_RANK_MODE``, ``BST_SEED_MODE``, ``BST_STATS_SYM``) are not read:
+the port takes its paths from the configuration only.  ``knn_k_pad`` is
+read as the JAX package reads it: the exact-kNN paths search
 ``max(knn_k_pad, normal_max_nn)`` neighbours.
 
 Every hard-coded constant of the reference binary becomes a field here,
@@ -127,23 +133,28 @@ class PipelineConfig:
     contour_kernel_size: int = 5    # ellipse structuring element
 
     # --- perf variant knobs of the JAX package (its bench.py autotunes
-    # them on the TPU; the port reads only seg_compact) ---
+    # them on the TPU; the port reads seg_compact, stats_rank_mode and
+    # seg_seed_mode) ---
     # compact-space coarse solver (ops/compact_sweep.py); None defers
     # to the BST_COMPACT env default read at import
     seg_compact: Optional[bool] = None
-    # TPU stats-kernel order-statistics ranking: "bisect" | "bitonic"
-    # (bit-exact alike); None defers to BST_RANK_MODE
+    # stats sweep of the multigrid path: None | "bitonic" | "bisect" =
+    # the exact sweep (JAX's two rankings are bit-identical); "mxu" =
+    # the block-form sweep (ops/stats_mxu.py, near-exact).  Read by the
+    # port; JAX's None defers to BST_RANK_MODE, the port's to the exact
+    # sweep.
     stats_rank_mode: Optional[str] = None
     # TPU stats kernel phase 3: re-read candidates at stored aligned
-    # offsets instead of strided rows
+    # offsets instead of strided rows (bit-identical; not read)
     stats_store_offsets: bool = True
     # TPU stats kernel phase 1: symmetry-halved pair sweep
-    # (bit-identical; each unordered pair computed once).  None defers
-    # to BST_STATS_SYM.
+    # (bit-identical; each unordered pair computed once; not read).
+    # JAX's None defers to BST_STATS_SYM.
     stats_sym: Optional[bool] = None
-    # TPU seed-sweep kernel: "pair" (one-directional shifts) | "sym"
-    # (symmetry-halved, bit-identical to "pair") | "mxu" (block-MXU
-    # matmul form, near-exact).  None defers to BST_SEED_MODE.
+    # fine seed sweep of the multigrid path: None | "pair" | "sym" =
+    # the exact sweep (bit-identical in JAX); "mxu" = the block-form
+    # sweep (ops/stats_mxu.py, near-exact).  Read by the port; JAX's
+    # None defers to BST_SEED_MODE, the port's to the exact sweep.
     seg_seed_mode: Optional[str] = None
     # multigrid seed gate: None/"fine" = the fine-level window_seeds
     # sweep (the reference's depth-0 rule re-expressed,

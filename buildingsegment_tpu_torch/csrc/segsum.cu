@@ -33,6 +33,16 @@
 // ceil128(n_live), capped at the table), else 0: one thread a row, a
 // direct gather (the TPU kernel's one-hot matmul over the live chunks).
 //
+// lookup_cols (replaces _lookup_cols_kernel, wrapper table_lookup_cols,
+// which nothing in either package calls): out[c, i] = lut[id_i, c] + 0
+// for 0 <= id_i < bound, else 0, written column-major (f32[cols, n]),
+// cols <= 8.  One thread an output element, consecutive threads on
+// consecutive rows of one column, so the id reads and the writes are
+// coalesced and only the table reads gather.  The TPU kernel's one-hot
+// matmul adds exact zeros, so its result is the table value, except that
+// its zero-initialised sum turns -0 into +0: the "+ 0" keeps that.  Bound
+// by bytes: 4 B of id in and 4 * cols B out a row.
+//
 // plane_sums: acc[t, c] = sum of payload[i, c] over the rows with id_i = t,
 // for t < bound (bound = ceil128(n_live), capped at the table), cols <= 128.
 // The TPU kernel took a one-hot [128, tile] x [tile, cols] matmul per live
@@ -128,6 +138,17 @@ __global__ void lookup_kernel(const int* __restrict__ ids,
   out[i] = (id >= 0 && id < bound) ? lut[id] : 0;
 }
 
+__global__ void lookup_cols_kernel(const int* __restrict__ ids,
+                                   const float* __restrict__ lut, int cols,
+                                   int bound, float* __restrict__ out,
+                                   int n) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;  // k = c * n + i
+  if (k >= cols * n) return;
+  const int c = k / n;
+  const int id = ids[k - c * n];
+  out[k] = (id >= 0 && id < bound) ? lut[id * cols + c] + 0.f : 0.f;
+}
+
 constexpr int kSegsumRows = 1024;
 
 __global__ void segsum_partial_kernel(const int* __restrict__ ids,
@@ -196,6 +217,18 @@ int bst_lookup(const int* ids, const int* lut, int bound, int* out, int n,
   lookup_kernel<<<(n + threads - 1) / threads, threads, 0,
                   static_cast<cudaStream_t>(stream)>>>(ids, lut, bound, out,
                                                         n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bst_lookup_cols(const int* ids, const float* lut, int cols, int bound,
+                    float* out, int n, void* stream) {
+  if (n <= 0 || bound < 0 || cols < 1 || cols > 8)
+    return cudaErrorInvalidValue;
+  const int threads = 256;
+  const int total = cols * n;
+  lookup_cols_kernel<<<(total + threads - 1) / threads, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(ids, lut, cols,
+                                                            bound, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,6 +45,9 @@ __all__ = [
     "plane_sums_cuda",
     "plane_adopt_cuda",
     "knn_exact_cuda",
+    "stats_mxu_cuda",
+    "seed_mxu_cuda",
+    "table_lookup_cols_cuda",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -53,6 +56,7 @@ _BUILD = os.path.join(_HERE, "_build")
 _SOURCES = (
     "label_sweep.cu", "compact_sweep.cu", "stats_sweep.cu", "seed_sweep.cu",
     "refine_sweep.cu", "segsum.cu", "adopt.cu", "knn_exact.cu",
+    "stats_mxu.cu",
 )
 _HEADERS = ("sweep_common.cuh",)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -65,6 +69,7 @@ launch_counts = {
     "label_sweep": 0, "compact_sweep": 0, "stats_sweep": 0,
     "seed_sweep": 0, "refine_sweep": 0, "payload_moment_sums": 0,
     "table_lookup": 0, "plane_adopt": 0, "knn_exact": 0, "plane_sums": 0,
+    "stats_mxu": 0, "seed_mxu": 0, "table_lookup_cols": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -173,9 +178,13 @@ def _bind() -> None:
     lib.bst_adopt.argtypes = [_P] * 8 + [_I, _F, _F, _I, _P]
     lib.bst_knn_exact.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.bst_plane_sums.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
+    lib.bst_stats_mxu.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
+    lib.bst_seed_mxu.argtypes = [_P] * 9 + [_I, _I, _F, _F, _I, _P]
+    lib.bst_lookup_cols.argtypes = [_P, _P, _I, _I, _P, _I, _P]
     for fn in (lib.bst_stats_sweep, lib.bst_seed_sweep, lib.bst_refine_sweep,
                lib.bst_paymom, lib.bst_lookup, lib.bst_adopt,
-               lib.bst_knn_exact, lib.bst_plane_sums):
+               lib.bst_knn_exact, lib.bst_plane_sums, lib.bst_stats_mxu,
+               lib.bst_seed_mxu, lib.bst_lookup_cols):
         fn.restype = _I
     _lib = lib
 
@@ -364,6 +373,48 @@ def seed_sweep_cuda(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
     return seed
 
 
+def stats_mxu_cuda(pos, mask, *, k, w, radius, max_nn):
+    """CUDA block-form stats sweep (csrc/stats_mxu.cu); see
+    :func:`buildingsegment_tpu_torch.ops.stats_mxu.stats_mxu`."""
+    # imported here: ops.stats_mxu imports this module
+    from buildingsegment_tpu_torch.ops.stats_mxu import mxu_r2, mxu_ranks
+
+    n = mask.shape[0]
+    comps = [_f32(t, n, "pos") for t in pos]
+    mask_u8 = _mask_bytes(mask, n)
+    r_k, r_cap = mxu_ranks(k, w, max_nn)
+    out = torch.empty((11, n), dtype=torch.float32, device=mask.device)
+    lib = _load()
+    err = lib.bst_stats_mxu(
+        *[t.data_ptr() for t in comps], mask_u8.data_ptr(), out.data_ptr(),
+        n, w, r_k, r_cap, mxu_r2(radius), _stream(out),
+    )
+    _check(lib, err, "stats_mxu")
+    launch_counts["stats_mxu"] += 1
+    return out[0], out[1], out[2:5].T, out[5:11].T
+
+
+def seed_mxu_cuda(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
+                  signed=False):
+    """CUDA block-form seed sweep (csrc/stats_mxu.cu); see
+    :func:`buildingsegment_tpu_torch.ops.stats_mxu.seed_sweep_mxu`."""
+    n = mask.shape[0]
+    comps = [_f32(t, n, name) for group, name in ((pos, "pos"), (nrm, "nrm"))
+             for t in group]
+    dk = _f32(dk, n, "dk")
+    mask_u8 = _mask_bytes(mask, n)
+    seed = torch.empty(n, dtype=torch.bool, device=mask.device)
+    lib = _load()
+    err = lib.bst_seed_mxu(
+        *[t.data_ptr() for t in comps], mask_u8.data_ptr(), dk.data_ptr(),
+        seed.data_ptr(), n, w, th_thickness, th_normal_cos, int(signed),
+        _stream(seed),
+    )
+    _check(lib, err, "seed_mxu")
+    launch_counts["seed_mxu"] += 1
+    return seed
+
+
 def refine_sweep_cuda(pos, nrm, mask, pid, table, n_live, *, w, th_thickness,
                       th_normal_cos, edge_gate2, signed=False, clean=False,
                       adopt=True):
@@ -432,6 +483,32 @@ def table_lookup_cuda(ids, lut, n_live):
                          out.data_ptr(), n, _stream(out))
     _check(lib, err, "table_lookup")
     launch_counts["table_lookup"] += 1
+    return out
+
+
+#: widest table the column lookup takes (the TPU kernel's 8 sublanes)
+LOOKUP_COLS_MAX = 8
+
+
+def table_lookup_cols_cuda(ids, lut, n_live):
+    """CUDA multi-column table lookup (csrc/segsum.cu); see
+    :func:`buildingsegment_tpu_torch.ops.segsum.table_lookup_cols`."""
+    n = ids.shape[0]
+    if lut.dim() != 2 or not 1 <= lut.shape[1] <= LOOKUP_COLS_MAX:
+        raise ValueError(f"table_lookup_cols: lut must be [cap, 1..8], got "
+                         f"{tuple(lut.shape)}")
+    cap, cols = lut.shape
+    ids = _cuda_tensor(ids, torch.int32, (n,), "ids")
+    lut = _cuda_tensor(lut, torch.float32, (cap, cols), "lut")
+    out = torch.empty((cols, n), dtype=torch.float32, device=ids.device)
+    if n == 0:
+        return out
+    lib = _load()
+    err = lib.bst_lookup_cols(ids.data_ptr(), lut.data_ptr(), cols,
+                              min(ceil128(n_live), cap), out.data_ptr(), n,
+                              _stream(out))
+    _check(lib, err, "table_lookup_cols")
+    launch_counts["table_lookup_cols"] += 1
     return out
 
 

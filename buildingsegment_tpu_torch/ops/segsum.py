@@ -1,11 +1,13 @@
 """Segment sums and lookups over a small id table.
 
 Port of ``plane_payload_moment_sums`` (kernel ``_paymom_kernel``),
-``table_lookup`` (kernel ``_lookup_kernel``) and ``plane_sums`` (kernel
+``table_lookup`` (kernel ``_lookup_kernel``), ``table_lookup_cols``
+(kernel ``_lookup_cols_kernel``) and ``plane_sums`` (kernel
 ``_segsum_kernel``; ``plane_sums_t``/``_segsum_t_kernel`` is the same
 function in transposed layout) in ``buildingsegment_tpu/ops/segsum.py``.
 The first two serve the multigrid finalize, ``plane_sums`` the raster's
-ground histogram.  The TPU kernels replaced XLA's
+ground histogram; ``table_lookup_cols`` has no caller, in the JAX
+package either.  The TPU kernels replaced XLA's
 sort-based scatter and gather with one-hot matmuls over the live
 128-id chunks; on Hopper a gather is a gather, and a segment sum is a
 fixed-order reduction (``csrc/segsum.cu``).
@@ -34,6 +36,7 @@ __all__ = [
     "block_order_sums",
     "plane_payload_moment_sums", "payload_moment_sums_reference",
     "table_lookup", "table_lookup_reference",
+    "table_lookup_cols", "table_lookup_cols_reference",
     "plane_sums", "plane_sums_reference",
 ]
 
@@ -145,6 +148,37 @@ def table_lookup(ids, lut, n_live) -> torch.Tensor:
     if ids.is_cuda:
         return kernels.table_lookup_cuda(ids, lut, n_live)
     return table_lookup_reference(ids, lut, n_live)
+
+
+def table_lookup_cols_reference(ids, lut, n_live) -> torch.Tensor:
+    """Plain PyTorch version of :func:`table_lookup_cols`."""
+    cap, cols = lut.shape
+    if not 1 <= cols <= kernels.LOOKUP_COLS_MAX:
+        raise ValueError(f"table_lookup_cols: lut must be [cap, 1..8], got "
+                         f"{tuple(lut.shape)}")
+    bound = min(kernels.ceil128(n_live), cap)
+    out = torch.zeros((cols, ids.shape[0]), dtype=torch.float32,
+                      device=ids.device)
+    if bound == 0:
+        return out
+    ok = (ids >= 0) & (ids < bound)
+    rows = torch.index_select(lut.float(), 0,
+                              ids.clamp(0, bound - 1).long())
+    # + 0: the TPU kernel's zero-initialised one-hot sum turns −0 into +0
+    return torch.where(ok[None, :], rows.T + 0.0, out)
+
+
+def table_lookup_cols(ids, lut, n_live) -> torch.Tensor:
+    """``lut[ids, :]`` for a small table, column-major → f32[cols, n].
+
+    ``ids`` int32[n]; ``lut`` f32[cap, cols], cols ≤ 8.  ``out[c, i]`` is
+    ``lut[ids[i], c]`` for ids in [0, ceil128(n_live)) (capped at the
+    table), 0 elsewhere.  CUDA tensors launch the CUDA kernel, CPU
+    tensors run :func:`table_lookup_cols_reference`.
+    """
+    if ids.is_cuda:
+        return kernels.table_lookup_cols_cuda(ids, lut, n_live)
+    return table_lookup_cols_reference(ids, lut, n_live)
 
 
 def plane_sums_reference(ids, payload, n_live, *, table_cap) -> torch.Tensor:

@@ -21,8 +21,17 @@ import torch
 
 from buildingsegment_tpu_torch import kernels
 from buildingsegment_tpu_torch.ops.fused import finish_normals, window_moments
+from buildingsegment_tpu_torch.ops.stats_mxu import stats_mxu
 
-__all__ = ["stats_sweep", "stats_sweep_reference", "knn_normals_window_stats"]
+__all__ = [
+    "stats_sweep", "stats_sweep_reference", "knn_normals_window_stats",
+    "RANK_MODES",
+]
+
+#: ``stats_rank_mode`` values: None, "bitonic" and "bisect" are the
+#: exact sweep (the JAX package's two rankings give the same bits),
+#: "mxu" the block-form variant
+RANK_MODES = (None, "bitonic", "bisect", "mxu")
 
 
 def stats_sweep_reference(
@@ -71,12 +80,19 @@ def knn_normals_window_stats(
     radius: float = 100.0,
     orient_z: bool = True,
     max_nn=None,
+    rank_mode=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stats-only sweep → (kth_sq_dist f32[N], normals f32[N, 3],
     curvature f32[N]); ``kth_sq_dist`` equals the fused sweep's
-    ``neigh_sq_dist[:, k−1]`` and the normals/curvature its outputs."""
+    ``neigh_sq_dist[:, k−1]`` and the normals/curvature its outputs.
+    ``rank_mode`` is one of :data:`RANK_MODES`; "mxu" runs the
+    block-form variant (the config's ``stats_rank_mode``)."""
+    if rank_mode not in RANK_MODES:
+        raise ValueError(f"rank_mode={rank_mode!r}, expected one of "
+                         f"{RANK_MODES}")
+    sweep = stats_mxu if rank_mode == "mxu" else stats_sweep
     pos = tuple(spos[:, d].float().contiguous() for d in range(3))
-    dk, s0, s1, s2 = stats_sweep(
+    dk, s0, s1, s2 = sweep(
         pos, smask, k=k, w=window, radius=radius, max_nn=max_nn
     )
     normals, curvature = finish_normals(s0, s1, s2, orient_z=orient_z)

@@ -131,6 +131,8 @@ def run_device_pipeline(
     seg_anchor_cos=None,
     seg_compact=None,
     seg_seed_source=None,
+    seg_seed_mode=None,
+    stats_rank_mode=None,
     morton_small: bool = False,
     spacing_hint_mm=None,
     timings: Optional[dict] = None,
@@ -140,8 +142,10 @@ def run_device_pipeline(
     ``k_search`` is the kNN width of the exact-kNN paths ("brute",
     "pallas"); the window path reads ``knn_k``.  Returns (shifted
     positions, bbox_min, SegmentationResult with ``plane_idx`` in input
-    order).  ``timings``, when given, receives per-stage seconds (each
-    stage ends in a device synchronize).
+    order).  ``stats_rank_mode`` and ``seg_seed_mode`` ("mxu": the
+    block-form stats and fine seed sweeps) apply to the multigrid window
+    path, as in the JAX package.  ``timings``, when given, receives
+    per-stage seconds (each stage ends in a device synchronize).
     """
     timings = {} if timings is None else timings
     if knn_method in ("brute", "pallas"):
@@ -169,6 +173,7 @@ def run_device_pipeline(
         dk, normals, curv = knn_normals_window_stats(
             spos.float(), smask, k=knn_k, window=knn_window_size,
             radius=normal_radius, max_nn=normal_max_nn,
+            rank_mode=stats_rank_mode,
         )
     else:
         neigh_idx, neigh_d, normals, curv = knn_normals_window_sorted(
@@ -198,7 +203,8 @@ def run_device_pipeline(
             spos, normals, smask, kth_sq_dist=dk, curvature=curv,
             group=seg_group, levels=seg_levels,
             refine_sweeps=seg_refine_sweeps, seed_source=seg_seed_source,
-            spacing_hint_mm=spacing_hint_mm, **seg_kwargs,
+            seed_mode=seg_seed_mode, spacing_hint_mm=spacing_hint_mm,
+            **seg_kwargs,
         )
     else:
         seg = segment_planes(
@@ -341,6 +347,8 @@ def _run_device(batch: PointBatch, config: PipelineConfig,
         seg_anchor_cos=config.seg_anchor_cos,
         seg_compact=config.seg_compact,
         seg_seed_source=config.seg_seed_source,
+        seg_seed_mode=config.seg_seed_mode,
+        stats_rank_mode=config.stats_rank_mode,
         morton_small=config.morton_small,
         spacing_hint_mm=config.spacing_hint_mm,
         timings=timings,

@@ -113,6 +113,7 @@ def segment_planes_multigrid(
     seed_override: Optional[torch.Tensor] = None,
     compact: Optional[bool] = None,
     seed_source: Optional[str] = None,
+    seed_mode: Optional[str] = None,
     spacing_hint_mm: Optional[float] = None,
 ) -> SegmentationResult:
     """Multigrid windowized plane segmentation (Morton-sorted input).
@@ -121,7 +122,9 @@ def segment_planes_multigrid(
     factor (must divide N).  ``kth_sq_dist`` f32[N] is the seed ball of
     the fine seed rule (without it the ball is the edge gate squared).
     ``seed_source="coarse"`` derives the group seeds from the coherence
-    statistics instead (no seed sweep; a different criterion).  The JAX
+    statistics instead (no seed sweep; a different criterion).
+    ``seed_mode`` picks the fine seed sweep's variant
+    (``region_grow.SEED_MODES``; "mxu" = block form).  The JAX
     package's ``heal`` knob (a perf-attribution switch) is not ported:
     the full heal runs at every level, as in production.
     """
@@ -194,6 +197,7 @@ def segment_planes_multigrid(
         fine_seed = window_seeds(
             pos, nrm, mask, dk, window=window, th_thickness=th_thickness,
             th_normal_cos=th_normal_cos, signed_normals=signed_normals,
+            seed_mode=seed_mode,
         )
     if fine_seed is not None:
         if curvature is not None and th_seed_curvature is not None:

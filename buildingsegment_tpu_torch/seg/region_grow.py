@@ -50,10 +50,17 @@ from buildingsegment_tpu_torch.ops.compact_sweep import COMPACT_L, compact_sweep
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
 from buildingsegment_tpu_torch.ops.segsum import row_order_sums
+from buildingsegment_tpu_torch.ops.stats_mxu import seed_sweep_mxu
 from buildingsegment_tpu_torch.ops.window_sweep import label_sweep, seed_sweep
 from buildingsegment_tpu_torch.utils.device import synchronize
 
-__all__ = ["segment_planes", "SegmentationResult", "window_seeds"]
+__all__ = ["segment_planes", "SegmentationResult", "window_seeds",
+           "SEED_MODES"]
+
+#: ``seg_seed_mode`` values: None, "pair" and "sym" are the exact seed
+#: sweep (the JAX package's two kernels give the same bits), "mxu" the
+#: block-form variant
+SEED_MODES = (None, "pair", "sym", "mxu")
 
 #: jump-doubling rounds per sweep (the JAX package's default)
 JUMP_ROUNDS = 2
@@ -150,17 +157,24 @@ def window_seeds(
     th_thickness: float = 300.0,
     th_normal_cos: float = 0.88,
     signed_normals: bool = False,
+    seed_mode=None,
 ) -> torch.Tensor:
     """Strict depth-0 seed rule over ±window sorted rows → bool[N].
 
     The reference's rule ("every one of the k−1 nearest neighbors
     passes the plane test", tmc3/my_function.cpp:238) on a Morton-sorted
     cloud: row i is a seed iff no window candidate within its k-th-NN
-    radius (``kth_sq_dist``, squared) fails the test.
+    radius (``kth_sq_dist``, squared) fails the test.  ``seed_mode`` is
+    one of :data:`SEED_MODES`; "mxu" runs the block-form variant (the
+    config's ``seg_seed_mode``).
     """
+    if seed_mode not in SEED_MODES:
+        raise ValueError(f"seed_mode={seed_mode!r}, expected one of "
+                         f"{SEED_MODES}")
+    sweep = seed_sweep_mxu if seed_mode == "mxu" else seed_sweep
     pos = tuple(positions[:, d].float().contiguous() for d in range(3))
     nrm = tuple(normals[:, d].float().contiguous() for d in range(3))
-    return seed_sweep(
+    return sweep(
         pos, nrm, mask, kth_sq_dist.float().contiguous(), w=window,
         th_thickness=float(th_thickness), th_normal_cos=float(th_normal_cos),
         signed=signed_normals,

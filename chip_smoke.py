@@ -14,20 +14,27 @@ Phases, in order; the first failure exits non-zero:
    capacity 223,232) under ``DEFAULT_CONFIG`` (the multigrid path:
    stats sweep, fine seeds, two coarsening levels, window solve with the
    compact loop, refine, finalize), once under the single-level
-   configuration ``seg_group=1`` and once under ``knn_method="pallas"``
-   (the exact-kNN path: kernel #14, gather normals, graph propagation),
-   recording the inputs each path hands to every kernel wrapper;
-4. hold each of the nine kernels against its plain PyTorch version on
-   the inputs of every call the paths made — all must match bit for
-   bit — and time both with CUDA events at the largest call, beside the
-   kernel's bound (the bytes the function must move over 3.35 TB/s or
-   the f32 operations it needs over 67 TFLOP/s, the H100 SXM's
-   published peaks, counted from this run's data) and, for #14, one
-   library call at the same shape (``torch.cdist`` + ``torch.topk``
-   over 4,096-query blocks: the expansion form, inexact, timing only);
-5. small-input check: the window configurations and the exact-kNN
-   methods "brute" and "pallas" on a 9k-point scene on the card and on
-   the CPU (plain versions) — same plane count, cross agreement ≥ 0.99;
+   configuration ``seg_group=1``, once under ``knn_method="pallas"``
+   (the exact-kNN path: kernel #14, gather normals, graph propagation)
+   and once under the block-form variant path ``mxu``
+   (``stats_rank_mode="mxu"``, ``seg_seed_mode="mxu"``: kernels #15 and
+   #16 in place of #3 and #4), recording the inputs each path hands to
+   every kernel wrapper;
+4. hold each of the twelve kernels the paths launch against its plain
+   PyTorch version on the inputs of every call the paths made — all
+   must match bit for bit — and time both with CUDA events at the
+   largest call, beside the kernel's bound (the bytes the function must
+   move over 3.35 TB/s or the f32 operations it needs over 67 TFLOP/s,
+   the H100 SXM's published peaks, counted from this run's data; #15
+   and #16 compute the work of #3 and #4 and take their counts) and,
+   for #14, one library call at the same shape (``torch.cdist`` +
+   ``torch.topk`` over 4,096-query blocks: the expansion form, inexact,
+   timing only); #15 and #3 are timed on the ``mxu`` path's stats input,
+   #16 and #4 on its seed input, in turns (exact, block, block, exact);
+5. small-input check: the window configurations, the ``mxu`` path and
+   the exact-kNN methods "brute" and "pallas" on a 9k-point scene on the
+   card and on the CPU (plain versions) — same plane count, cross
+   agreement ≥ 0.99;
 6. the measured runs: for each path, launch counts reset, ``segment_file``
    on the slice's scene, counts read; every kernel of the path must have
    launched; the output PLY is re-read and checked; the default path
@@ -35,8 +42,10 @@ Phases, in order; the first failure exits non-zero:
    0.982314 on this scene on the CPU, − 0.01), the single-level path
    8 planes at ≥ 0.9633 (0.9733 − 0.01), the pallas path 7 planes at
    ≥ 0.9853 (the JAX package's exact-kNN result, 0.995279 with "brute"
-   on the CPU, − 0.01).  Three more runs of the default and the pallas
-   paths give their stage times;
+   on the CPU, − 0.01), the ``mxu`` path the default path's 7 planes at
+   ≥ 0.9723 with cross agreement ≥ 0.99 against the default path's
+   labels of this run, and #3 and #4 must not launch there.  Three more
+   runs of the default, pallas and ``mxu`` paths give their stage times;
 7. ``DEFAULT_CONFIG`` on the same house at 105 mm spacing (60,914
    points): "auto" must resolve to "brute" and give 18 planes at truth
    agreement ≥ 0.6239 (JAX on the CPU: 0.633894 − 0.01), plus three
@@ -69,7 +78,17 @@ Phases, in order; the first failure exits non-zero:
    rasters (plain versions, the same positions moved to the CPU) within
    the sums' reordering bound, and the PNGs agree within 1 per pixel.
    Its wall time gives the config-5 Mpts/s; ``render_ortho_views`` on
-   scan 0 gives the render's own span.
+   scan 0 gives the render's own span.  #10 ``table_lookup_cols``, which
+   no path calls, is held bit for bit against its plain version on the
+   ids and live bounds of the default path's ``table_lookup`` calls
+   (slice scene and capacity 1,179,648) with a seeded f32[cap, 3] table,
+   and timed at the largest;
+11. the ``mxu`` path at full size: config 5's scan 0 (1,082,304 points,
+   capacity 1,179,648) through ``segment_file``: every #15 and #16 call
+   held bit for bit; #15 and #3 timed on the same captured stats input,
+   #16 and #4 on the same captured seed input, as in step 4, beside the
+   one bound of each pair; the labels agree with the default path's
+   scan 0 of step 10 (cross agreement ≥ 0.99).
 
 The last three lines of stdout are the card line, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -104,7 +123,7 @@ RENDER_PNGS = ("平均高度.png", "像素数量.png", "像素数量+高度.png"
 # (planes, least truth agreement) per path: the JAX package's CPU result
 # on its scene, agreement − 0.01
 EXPECT = {"default": (7, 0.9723), "single_level": (8, 0.9633),
-          "pallas": (7, 0.9853), "auto": (18, 0.6239)}
+          "pallas": (7, 0.9853), "auto": (18, 0.6239), "mxu": (7, 0.9723)}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SRC = "buildingsegment_tpu_torch/csrc"
@@ -122,6 +141,9 @@ KERNELS = {
     "plane_adopt": ("adopt.cu", "adopt.py:87", 50, 3),
     "knn_exact": ("knn_exact.cu", "pallas_knn.py:95", 20, 1),
     "plane_sums": ("segsum.cu", "segsum.py:41", 50, 3),
+    "stats_mxu": ("stats_mxu.cu", "stats_mxu.py:75", 20, 1),
+    "seed_mxu": ("stats_mxu.cu", "stats_mxu.py:262", 50, 1),
+    "table_lookup_cols": ("segsum.cu", "segsum.py:222", 50, 5),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -131,17 +153,33 @@ PATH_KERNELS = {
     "single_level": ("label_sweep", "compact_sweep"),
     "pallas": ("knn_exact",),
 }
+# the block-form variant path: #15 and #16 in place of #3 and #4
+PATH_KERNELS["mxu"] = ("stats_mxu", "seed_mxu") + PATH_KERNELS["default"][2:]
+MXU_REPLACES = {"stats_mxu": "stats_sweep", "seed_mxu": "seed_sweep"}
 # the multi-scan render path runs the default path and the raster
 PATH_KERNELS["render"] = PATH_KERNELS["default"] + ("plane_sums",)
-# the path whose calls and launches each kernel reports
+# the path whose calls and launches each kernel reports (#10 has no
+# caller: it is held on the render path's lookup inputs)
 MAIN_PATH = {name: path for path in ("single_level", "pallas", "default")
              for name in PATH_KERNELS[path]}
-MAIN_PATH["plane_sums"] = "render"
+MAIN_PATH.update(plane_sums="render", stats_mxu="mxu", seed_mxu="mxu",
+                 table_lookup_cols="render")
 # the wrapper argument whose length is the call's row count
 ROWS_ARG = {"stats_sweep": 1, "seed_sweep": 2, "label_sweep": 4,
             "compact_sweep": 4, "refine_sweep": 2, "payload_moment_sums": 0,
             "table_lookup": 0, "plane_adopt": 1, "knn_exact": 1,
-            "plane_sums": 0}
+            "plane_sums": 0, "stats_mxu": 1, "seed_mxu": 2,
+            "table_lookup_cols": 0}
+# the seeded table of the #10 check: f32[cap, LOOKUP_COLS]
+LOOKUP_COLS = 3
+
+
+def mxu_config(**kw):
+    """The block-form variant path: DEFAULT_CONFIG with the "mxu" stats
+    and seed sweeps."""
+    from buildingsegment_tpu_torch.pipeline import PipelineConfig
+
+    return PipelineConfig(stats_rank_mode="mxu", seg_seed_mode="mxu", **kw)
 
 
 def fail(msg):
@@ -238,6 +276,8 @@ def work(torch, name, args, kw, out):
     outs = out if isinstance(out, tuple) else (out,)
     moved = nbytes(args) + nbytes(outs)
     note = ""
+    # the block-form sweeps compute the exact sweeps' function
+    name = MXU_REPLACES.get(name, name)
     if name == "stats_sweep":
         mask = args[1]
         pairs = window_pairs(torch, mask, kw["w"])
@@ -264,7 +304,7 @@ def work(torch, name, args, kw, out):
         # the payload is read for live rows only
         moved -= (ids.shape[0] - live) * payload.shape[1] * 4
         ops = live * 23
-    elif name == "table_lookup":
+    elif name in ("table_lookup", "table_lookup_cols"):
         ops = 0
     elif name == "plane_sums":
         ids, payload = args[0], args[1]
@@ -394,10 +434,9 @@ def spying(torch, hooks, seen):
             setattr(mod, attr, orig[k])
 
 
-def hold_kernel(torch, name, path, calls, cuda_fn, plain_fn, card):
+def hold_calls(torch, name, path, calls, cuda_fn, plain_fn):
     """Every captured call of one kernel against its plain version, bit for
-    bit; the first call at the largest row count timed beside its bound
-    and, where there is one, the library call.  Returns the kernel's row."""
+    bit; returns the largest |kernel − plain| (0.0)."""
     err = 0.0
     for n, args, kw in calls:
         k_out = cuda_fn(*args, **kw)
@@ -410,6 +449,14 @@ def hold_kernel(torch, name, path, calls, cuda_fn, plain_fn, card):
             fail(f"{name} ({path} path, {n} rows, kw {kw}): "
                  f"kernel != plain version (max abs err {e})")
         err = max(err, e)
+    return err
+
+
+def hold_kernel(torch, name, path, calls, cuda_fn, plain_fn, card):
+    """Every captured call of one kernel against its plain version, bit for
+    bit; the first call at the largest row count timed beside its bound
+    and, where there is one, the library call.  Returns the kernel's row."""
+    err = hold_calls(torch, name, path, calls, cuda_fn, plain_fn)
     big = max(n for n, _a, _k in calls)
     n, args, kw = next(c for c in calls if c[0] == big)
     k_out = cuda_fn(*args, **kw)
@@ -434,6 +481,44 @@ def hold_kernel(torch, name, path, calls, cuda_fn, plain_fn, card):
           f"{library_ms} ms, bound {row['bound_ms']:.6f} ms by "
           f"{row['bound_by']} ({moved} B, {ops} ops{note}) ({card})")
     return row
+
+
+def block_vs_exact(torch, name, calls, cuda_fns, card, where):
+    """#15 (#16) and the exact kernel it stands in for, #3 (#4), timed on
+    the same captured input (the first call at the largest row count) in
+    turns — exact, block, block, exact — beside the one bound of the
+    function both compute.  Returns the pair's record."""
+    exact = MXU_REPLACES[name]
+    big = max(n for n, _a, _k in calls)
+    n, args, kw = next(c for c in calls if c[0] == big)
+    block_fn, exact_fn = cuda_fns[name], cuda_fns[exact]
+    reps = KERNELS[name][2]
+    t_exact = [cuda_ms(torch, lambda: exact_fn(*args, **kw), reps)]
+    t_block = [cuda_ms(torch, lambda: block_fn(*args, **kw), reps)
+               for _ in range(2)]
+    t_exact.append(cuda_ms(torch, lambda: exact_fn(*args, **kw), reps))
+    moved, ops, _note = work(torch, exact, args, kw, exact_fn(*args, **kw))
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    rec = {"rows": n, "calls": len(calls), "ms": t_block,
+           f"{exact}_ms": t_exact, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"{name} vs {exact} on the same input, {n} rows ({where}): "
+          f"{name} {t_block[0]:.4f} / {t_block[1]:.4f} ms, {exact} "
+          f"{t_exact[0]:.4f} / {t_exact[1]:.4f} ms, bound "
+          f"{rec['bound_ms']:.6f} ms by {rec['bound_by']} ({card})")
+    return rec
+
+
+def lookup_cols_calls(torch, calls, seed):
+    """#10's inputs from captured ``table_lookup`` calls: the same ids and
+    live bound, with a seeded f32[cap, LOOKUP_COLS] table."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for n, (ids, lut, n_live), _kw in calls:
+        table = torch.randn((lut.shape[0], LOOKUP_COLS), generator=g)
+        out.append((n, (ids, table.to(ids.device), n_live), {}))
+    return out
 
 
 def cli_render(tmp, src):
@@ -484,10 +569,13 @@ def splat_terms(torch, pos, mask, th, width, bin_size):
     return int(torch.bincount(idx).max())
 
 
-def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches):
+def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches,
+                    cols_calls):
     """BASELINE config 5 on the card: four ~1.08M-point scans through
     ``segment_files`` with the render; see the module docstring, step 10.
-    Adds #8's row to ``results`` and the run's counts to ``launches``."""
+    Adds the render path's rows to ``results``, the run's counts to
+    ``launches`` and #10's inputs from its lookups to ``cols_calls``.
+    Returns (the summary, scan 0's labels)."""
     from buildingsegment_tpu_torch import kernels
     from buildingsegment_tpu_torch.io.png import read_png
     from buildingsegment_tpu_torch.pipeline import (
@@ -533,6 +621,7 @@ def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches):
                  f"{len(seen['plane_sums'])} times")
         print(f"warm-up run, render: calls "
               f"{ {k: len(v) for k, v in seen.items()} }")
+        cols_calls += lookup_cols_calls(torch, seen["table_lookup"], 1)
         for name in PATH_KERNELS["render"]:
             results[("render", name)] = hold_kernel(
                 torch, name, "render", seen.pop(name), cuda_fns[name],
@@ -646,7 +735,57 @@ def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches):
         "launches": launches["render"], "per_scan": per_scan,
         "raster_rel_err": err, "raster_tol": tol, "png_max_diff": png_diff,
         "render_span_s": [min(spans), max(spans)], "card": card,
-    }
+    }, outs[0].plane_idx
+
+
+def mxu_full_phase(torch, np, hooks, cuda_fns, card, default_labels0):
+    """The ``mxu`` path on config 5's scan 0 at capacity 1,179,648; see the
+    module docstring, step 11.  Returns its summary."""
+    from buildingsegment_tpu_torch.pipeline import (
+        HostPointCloud, _bucket_capacity, segment_file, write_ply,
+    )
+    from buildingsegment_tpu_torch.utils import (
+        bij_agreement, make_building_cloud,
+    )
+
+    cfg = mxu_config()
+    pts, truth = make_building_cloud(**dict(MULTISCAN_SCENE, seed=0))
+    cap = _bucket_capacity(len(pts), cfg)
+    if cap != MULTISCAN_CAPACITY:
+        fail(f"scan 0 ({len(pts)} points) buckets to {cap}")
+    cfg = dataclasses.replace(cfg, pad_to_multiple=cap)
+    names = ("stats_mxu", "seed_mxu", "stats_sweep", "seed_sweep")
+    seen = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "scan0.ply")
+        write_ply(HostPointCloud(positions=pts), src, position_scale=1e-3)
+        with spying(torch, {k: hooks[k] for k in names}, seen):
+            out = segment_file(src, os.path.join(tmp, "out0.ply"), cfg,
+                               device="cuda")
+    if "stats_sweep" in seen or "seed_sweep" in seen or not (
+            "stats_mxu" in seen and "seed_mxu" in seen):
+        fail(f"mxu path at full size called {sorted(seen)}")
+    if {n for k in seen for n, _a, _k in seen[k]} != {cap}:
+        fail(f"mxu path at full size: rows other than {cap}")
+    bij = bij_agreement(truth, out.plane_idx)
+    cross = bij_agreement(default_labels0, out.plane_idx)
+    if cross < 0.99:
+        fail(f"mxu path on scan 0: cross agreement {cross:.6f} with the "
+             f"default path's labels")
+    summary = {"points": len(pts), "capacity": cap,
+               "planes": out.num_planes, "truth_bij": round(bij, 6),
+               "cross_bij_default": round(cross, 6),
+               "calls": {k: len(v) for k, v in seen.items()}, "card": card}
+    for name in MXU_REPLACES:
+        calls = seen.pop(name)
+        hold_calls(torch, name, "mxu full size", calls, cuda_fns[name],
+                   hooks[name][2])
+        summary[name] = block_vs_exact(torch, name, calls, cuda_fns, card,
+                                       "mxu path, scan 0")
+    print(f"mxu path on scan 0 ({len(pts)} points, capacity {cap}): "
+          f"{out.num_planes} planes at truth agreement {bij:.6f}, cross "
+          f"agreement {cross:.6f} with the default path")
+    return summary
 
 
 def main():
@@ -665,7 +804,8 @@ def main():
     from buildingsegment_tpu_torch.core.pointset import PointBatch
     from buildingsegment_tpu_torch.core.quantize import shift_to_origin
     from buildingsegment_tpu_torch.ops import (
-        adopt, compact_sweep, pallas_knn, segsum, stats_sweep, window_sweep,
+        adopt, compact_sweep, pallas_knn, segsum, stats_mxu, stats_sweep,
+        window_sweep,
     )
     from buildingsegment_tpu_torch.pipeline import (
         DEFAULT_CONFIG, HostPointCloud, PipelineConfig, read_ply,
@@ -698,6 +838,10 @@ def main():
         "knn_exact": (pallas_knn, "knn_exact",
                       pallas_knn.knn_exact_reference),
         "plane_sums": (ortho, "plane_sums", segsum.plane_sums_reference),
+        "stats_mxu": (stats_sweep, "stats_mxu",
+                      stats_mxu.stats_mxu_reference),
+        "seed_mxu": (region_grow, "seed_sweep_mxu",
+                     stats_mxu.seed_sweep_mxu_reference),
     }
     cuda_fns = {
         "stats_sweep": kernels.stats_sweep_cuda,
@@ -710,6 +854,9 @@ def main():
         "plane_adopt": kernels.plane_adopt_cuda,
         "knn_exact": kernels.knn_exact_cuda,
         "plane_sums": kernels.plane_sums_cuda,
+        "stats_mxu": kernels.stats_mxu_cuda,
+        "seed_mxu": kernels.seed_mxu_cuda,
+        "table_lookup_cols": kernels.table_lookup_cols_cuda,
     }
 
     # 2. build
@@ -721,6 +868,7 @@ def main():
         "single_level": PipelineConfig(knn_method="window", seg_group=1,
                                        pad_to_multiple=2048),
         "pallas": PipelineConfig(knn_method="pallas"),
+        "mxu": mxu_config(),
     }
     pts, truth = make_building_cloud(**SCENE)
     if len(pts) != SCENE_POINTS:
@@ -747,13 +895,19 @@ def main():
                   f"{ {k: len(v) for k, v in seen.items()} }")
 
         # 4. every captured call of every kernel against its plain version,
-        # bit for bit; the first call at the largest row count is timed
+        # bit for bit; the first call at the largest row count is timed.
+        # #10 has no caller: its inputs come from the default path's lookups
+        cols_calls = lookup_cols_calls(
+            torch, captured["default"]["table_lookup"], 0)
         results = {}
         for path, seen in captured.items():
             for name, calls in seen.items():
                 results[(path, name)] = hold_kernel(
                     torch, name, path, calls, cuda_fns[name], hooks[name][2],
                     card)
+        mxu_pairs = {name: block_vs_exact(torch, name, captured["mxu"][name],
+                                          cuda_fns, card, "mxu path")
+                     for name in MXU_REPLACES}
         del captured
 
         # 5. small input: card (kernels) vs CPU (plain versions)
@@ -761,7 +915,8 @@ def main():
         for path, cfg in (("default", PipelineConfig(knn_method="window")),
                           ("single_level", configs["single_level"]),
                           ("brute", PipelineConfig(knn_method="brute")),
-                          ("pallas", configs["pallas"])):
+                          ("pallas", configs["pallas"]),
+                          ("mxu", mxu_config(knn_method="window"))):
             small_gpu = segment_cloud(HostPointCloud(positions=spts), cfg,
                                       device="cuda")
             small_cpu = segment_cloud(HostPointCloud(positions=spts), cfg,
@@ -777,7 +932,7 @@ def main():
 
         # 6. the measured runs, one per path
         launches, summary = {}, {}
-        for path in ("single_level", "pallas", "default"):
+        for path in ("single_level", "pallas", "default", "mxu"):
             kernels.reset_launch_counts()
             out = segment_file(src, dst, configs[path], device="cuda")
             launches[path] = dict(kernels.launch_counts)
@@ -790,7 +945,19 @@ def main():
             if out.num_planes != planes or bij < least:
                 fail(f"{path}: {out.num_planes} planes at truth agreement "
                      f"{bij:.6f}; expected {planes} at >= {least}")
-            summary[path] = {
+            if path == "default":
+                default_labels = out.plane_idx
+            extra = {}
+            if path == "mxu":
+                for exact in MXU_REPLACES.values():
+                    if launches[path][exact]:
+                        fail(f"mxu path launched {exact}")
+                cross = bij_agreement(default_labels, out.plane_idx)
+                if cross < 0.99:
+                    fail(f"mxu path: cross agreement {cross:.6f} with the "
+                         f"default path's labels")
+                extra["cross_bij_default"] = round(cross, 6)
+            summary[path] = {**extra,
                 "planes": out.num_planes, "truth_bij": round(bij, 6),
                 "num_sweeps": out.num_sweeps, "host_syncs": out.host_syncs,
                 "diagnostics": out.diagnostics, "launches": launches[path],
@@ -803,7 +970,7 @@ def main():
         # paths (min, max)
         spread = {path: stage_spread([
             segment_file(src, dst, configs[path], device="cuda").timings
-            for _ in range(3)]) for path in ("default", "pallas")}
+            for _ in range(3)]) for path in ("default", "pallas", "mxu")}
 
         # 7. "auto" at 60,914 points resolves to the brute path
         apts, atruth = make_building_cloud(**AUTO_SCENE)
@@ -903,12 +1070,23 @@ def main():
     del batch, shifted, order, spos, smask, calls8, args, got_d, got_i
 
     # 10. BASELINE config 5: the multi-scan render path at full size
-    multiscan = multiscan_phase(torch, np, hooks, cuda_fns, card, results,
-                                launches)
+    multiscan, labels0 = multiscan_phase(torch, np, hooks, cuda_fns, card,
+                                         results, launches, cols_calls)
+    results[("render", "table_lookup_cols")] = hold_kernel(
+        torch, "table_lookup_cols", "render", cols_calls,
+        kernels.table_lookup_cols_cuda, segsum.table_lookup_cols_reference,
+        card)
+    del cols_calls
+    if any(c["table_lookup_cols"] for c in launches.values()):
+        fail("a path launched table_lookup_cols, which nothing calls")
+
+    # 11. the mxu path at full size
+    mxu_full = mxu_full_phase(torch, np, hooks, cuda_fns, card, labels0)
 
     print(json.dumps({"points": len(pts), "card": card, "build_s": t_build,
                       "paths": summary, "stages_min_max_s": spread,
-                      "config2": config2, "multiscan": multiscan}))
+                      "config2": config2, "multiscan": multiscan,
+                      "mxu_pairs": mxu_pairs, "mxu_full": mxu_full}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
         path = MAIN_PATH[name]

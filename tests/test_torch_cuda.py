@@ -32,7 +32,12 @@ from buildingsegment_tpu_torch.ops.pallas_knn import (
 from buildingsegment_tpu_torch.ops.segsum import (
     payload_moment_sums_reference,
     plane_sums_reference,
+    table_lookup_cols_reference,
     table_lookup_reference,
+)
+from buildingsegment_tpu_torch.ops.stats_mxu import (
+    seed_sweep_mxu_reference,
+    stats_mxu_reference,
 )
 from buildingsegment_tpu_torch.ops.stats_sweep import stats_sweep_reference
 from buildingsegment_tpu_torch.ops.window_sweep import (
@@ -150,6 +155,7 @@ _SLICE1 = ("label_sweep", "compact_sweep")
 _PALLAS = ("knn_exact",)
 _MULTIGRID = ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
               "payload_moment_sums", "table_lookup", "plane_adopt")
+_MXU = ("stats_mxu", "seed_mxu") + _MULTIGRID[2:]
 
 
 @pytest.mark.parametrize(
@@ -158,10 +164,12 @@ _MULTIGRID = ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
         (PipelineConfig(knn_method="window", seg_group=1,
                         pad_to_multiple=2048), _SLICE1),
         (PipelineConfig(knn_method="window"), _MULTIGRID),
+        (PipelineConfig(knn_method="window", stats_rank_mode="mxu",
+                        seg_seed_mode="mxu"), _MXU),
         (PipelineConfig(knn_method="brute"), ()),
         (PipelineConfig(knn_method="pallas"), _PALLAS),
     ],
-    ids=["single_level", "default_multigrid", "brute", "pallas"],
+    ids=["single_level", "default_multigrid", "mxu", "brute", "pallas"],
 )
 def test_segment_cloud_card_matches_cpu(cuda, cfg, launched):
     pts, truth = make_building_cloud(**_SCENE)
@@ -169,6 +177,11 @@ def test_segment_cloud_card_matches_cpu(cuda, cfg, launched):
     a = segment_cloud(HostPointCloud(positions=pts), cfg, device="cuda")
     assert all(kernels.launch_counts[k] > 0 for k in launched), \
         kernels.launch_counts
+    # the block-form and the exact stats/seed sweeps exclude each other
+    for exact, block in (("stats_sweep", "stats_mxu"),
+                         ("seed_sweep", "seed_mxu")):
+        assert not (kernels.launch_counts[exact]
+                    and kernels.launch_counts[block]), kernels.launch_counts
     b = segment_cloud(HostPointCloud(positions=pts), cfg, device="cpu")
     assert a.num_planes == b.num_planes
     assert bij_agreement(a.plane_idx, b.plane_idx) >= 0.99
@@ -202,6 +215,92 @@ def test_seed_sweep_kernel_matches_plain(scene, signed):
     ref = seed_sweep_reference(_cols(pos), _cols(nrm), mask, dk, **kw)
     assert got.sum() > 100 and (mask & ~got).sum() > 100
     assert torch.equal(got, ref)
+
+
+def _sparse_cloud(cuda):
+    """A cloud at building span (unsorted), 7,000 rows (not a multiple of
+    the 128-row blocks), 30% valid, rows 1,024–1,919 (seven whole blocks)
+    and the last 300 rows masked; random unit normals and seed balls."""
+    rng = np.random.default_rng(21)
+    n = 7000
+    pos = rng.integers(0, 9000, (n, 3)).astype(np.float32)
+    mask = rng.random(n) < 0.3
+    mask[1024:1920] = False
+    mask[-300:] = False
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    dk = rng.uniform(1e5, 4e7, n).astype(np.float32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    return T(pos), T(nrm), T(mask), T(dk)
+
+
+@pytest.mark.parametrize("case,radius,max_nn", [
+    ("scene", 100.0, 50), ("scene", 300.0, 50), ("scene", 1e6, None),
+    ("sparse", 3000.0, 20),
+])
+def test_stats_mxu_kernel_matches_plain(scene, case, radius, max_nn):
+    """#15 against its plain version, bit for bit, on the card and on the
+    CPU: the building scene (Morton-sorted, padded), and the sparse cloud
+    with masked rows and empty blocks."""
+    if case == "scene":
+        pos, _nrm, mask = scene
+    else:
+        pos, _nrm, mask, _dk = _sparse_cloud(scene[0].device)
+    kw = dict(k=15, w=48, radius=radius, max_nn=max_nn)
+    before = kernels.launch_counts["stats_mxu"]
+    got = kernels.stats_mxu_cuda(_cols(pos), mask, **kw)
+    assert kernels.launch_counts["stats_mxu"] == before + 1
+    ref = stats_mxu_reference(_cols(pos), mask, **kw)
+    on_cpu = stats_mxu_reference(_cols(pos.cpu()), mask.cpu(), **kw)
+    assert (got[0] > 0).sum() > 1000 and (got[1] > 1).sum() > 1000
+    for g, r, c in zip(got, ref, on_cpu):
+        assert torch.equal(g, r) and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("case,signed", [("scene", False), ("scene", True),
+                                         ("sparse", False)])
+def test_seed_mxu_kernel_matches_plain(scene, case, signed):
+    """#16 against its plain version, bit for bit, on the card and on the
+    CPU: the building scene with its block-form seed balls, and the
+    sparse cloud with random normals and balls."""
+    if case == "scene":
+        pos, nrm, mask = scene
+        dk = stats_mxu_reference(_cols(pos), mask, k=15, w=48, radius=100.0,
+                                 max_nn=50)[0]
+    else:
+        pos, nrm, mask, dk = _sparse_cloud(scene[0].device)
+    kw = dict(w=16, th_thickness=TH, th_normal_cos=CTH, signed=signed)
+    before = kernels.launch_counts["seed_mxu"]
+    got = kernels.seed_mxu_cuda(_cols(pos), _cols(nrm), mask, dk, **kw)
+    assert kernels.launch_counts["seed_mxu"] == before + 1
+    ref = seed_sweep_mxu_reference(_cols(pos), _cols(nrm), mask, dk, **kw)
+    on_cpu = seed_sweep_mxu_reference(_cols(pos.cpu()), _cols(nrm.cpu()),
+                                      mask.cpu(), dk.cpu(), **kw)
+    assert got.sum() > 30 and (mask & ~got).sum() > 100
+    assert torch.equal(got, ref) and torch.equal(got.cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("cols", [1, 3, 8])
+def test_table_lookup_cols_kernel_matches_plain(cuda, cols):
+    """#10 against its plain version, bit for bit, on the card and on the
+    CPU: ids below 0, inside and above the live bound and above the
+    table, 50,001 rows, a table holding −0.0 (read back as +0.0)."""
+    g = torch.Generator(device="cpu").manual_seed(30 + cols)
+    n = 50_001
+    ids = torch.randint(-3, 700, (n,), generator=g, dtype=torch.int32)
+    lut = torch.randn((600, cols), generator=g)
+    lut[5] = -0.0
+    for n_live in (0, 1, 130, 600, 5000):
+        before = kernels.launch_counts["table_lookup_cols"]
+        got = kernels.table_lookup_cols_cuda(ids.to(cuda), lut.to(cuda),
+                                             n_live)
+        assert kernels.launch_counts["table_lookup_cols"] == before + 1
+        on_card = table_lookup_cols_reference(ids.to(cuda), lut.to(cuda),
+                                              n_live)
+        on_cpu = table_lookup_cols_reference(ids, lut, n_live)
+        assert got.shape == (cols, n)
+        assert torch.equal(got, on_card) and torch.equal(got.cpu(), on_cpu)
+    assert not torch.signbit(got[:, ids.to(cuda) == 5]).any()
 
 
 def _plane_problem(pos, nrm, mask, seed):

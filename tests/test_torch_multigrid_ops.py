@@ -6,6 +6,8 @@ package's Pallas kernels, run in interpret mode on the CPU.
     exact min/or chains over the same f32 operations — bit for bit;
   * lookup (#9 ``_lookup_kernel``): a gather — exact, including the live
     bound rounded up to 128 ids;
+  * column lookup (#10 ``_lookup_cols_kernel``, no caller in either
+    package): a gather of up to 8 columns, column-major — bit for bit;
   * payload sums + moments (#11 ``_paymom_kernel``): the same products,
     summed in another order — the count column exact, the sums within
     1e-5 and the moments within 1e-4 of the largest entry (the JAX
@@ -30,6 +32,7 @@ from buildingsegment_tpu.ops.adopt import plane_adopt as jax_plane_adopt
 from buildingsegment_tpu.ops.segsum import (
     plane_payload_moment_sums as jax_paymom,
     table_lookup as jax_lookup,
+    table_lookup_cols as jax_lookup_cols,
 )
 from buildingsegment_tpu.ops.window_sweep import (
     build_plane_table,
@@ -48,6 +51,7 @@ from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.segsum import (
     plane_payload_moment_sums,
     table_lookup,
+    table_lookup_cols,
 )
 from buildingsegment_tpu_torch.ops.stats_sweep import knn_normals_window_stats
 from buildingsegment_tpu_torch.ops.window_sweep import (
@@ -213,6 +217,33 @@ def test_lookup_plain_matches_kernel():
     ids_t = torch.from_numpy(ids)
     assert int(got[ids_t >= 384].abs().sum()) == 0
     assert torch.equal(got[ids_t < 384], torch.from_numpy(lut)[ids_t[ids_t < 384].long()])
+
+
+@pytest.mark.parametrize("cols", [3, 8])
+def test_lookup_cols_plain_matches_kernel(cols):
+    """#10: ids below 0, inside the live bound, above n_live inside its
+    last 128-id chunk, above the bound and above the table; 5,001 rows
+    (no multiple of 128); bit for bit, −0.0 in the table read as +0.0."""
+    rng = np.random.default_rng(40 + cols)
+    n, cap = 5001, 650
+    ids = rng.integers(-2, 800, size=n).astype(np.int32)
+    lut = rng.normal(size=(cap, cols)).astype(np.float32)
+    lut[7] = -0.0
+    ids[:4] = 7
+    for n_live in (0, 130, 300, cap):
+        want = np.asarray(jax_lookup_cols(
+            jnp.asarray(ids), jnp.asarray(lut), jnp.int32(n_live),
+            tile=TILE, interpret=True))
+        got = table_lookup_cols(torch.from_numpy(ids), torch.from_numpy(lut),
+                                n_live)
+        assert got.shape == (cols, n)
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      want.view(np.int32))
+    # 300 live → ids up to 383 read the table, the rest read 0
+    got = table_lookup_cols(torch.from_numpy(ids), torch.from_numpy(lut), 300)
+    live = (ids >= 0) & (ids < 384)
+    np.testing.assert_array_equal(got.numpy()[:, ~live], 0.0)
+    np.testing.assert_array_equal(got.numpy()[:, live], lut[ids[live]].T)
 
 
 def test_paymom_plain_matches_kernel():

@@ -116,7 +116,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('raster', 'raster.ortho', 'raster.contours', 'io.png',\n"
-        "          'io.obj', 'ops.scatter', 'ops.segsum', 'cli'):\n"
+        "          'io.obj', 'ops.scatter', 'ops.segsum', 'ops.stats_mxu',\n"
+        "          'cli'):\n"
         "    assert 'buildingsegment_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'buildingsegment_tpu'))\n"

@@ -3,11 +3,12 @@
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 tools/profile_port.py [--config default|single_level|pallas|brute|render|multiscan] [--runs 3]
+    python3 tools/profile_port.py [--config default|single_level|pallas|brute|mxu|render|multiscan] [--runs 3]
 
 Builds the slice scene (222,828 points, the scene of chip_smoke.py; for
 ``--config brute`` the same house at 105 mm spacing, 60,914 points,
-where ``DEFAULT_CONFIG``'s "auto" resolves to "brute"), warms
+where ``DEFAULT_CONFIG``'s "auto" resolves to "brute"; ``--config mxu``
+is ``DEFAULT_CONFIG`` with the block-form stats and seed sweeps), warms
 ``segment_cloud`` up twice, then runs it ``--runs`` times under
 ``torch.profiler`` (CPU and CUDA activity).  ``--config multiscan``
 profiles BASELINE config 5 instead: ``segment_files`` with the render
@@ -76,6 +77,7 @@ def workload(config, tmp):
                                        pad_to_multiple=2048),
         "pallas": PipelineConfig(knn_method="pallas"),
         "brute": DEFAULT_CONFIG,
+        "mxu": PipelineConfig(stats_rank_mode="mxu", seg_seed_mode="mxu"),
     }[config]
     pts, _ = make_building_cloud(
         seed=0, spacing_mm=105.0 if config == "brute" else 55.0, **house)
@@ -87,7 +89,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config",
                     choices=("default", "single_level", "pallas", "brute",
-                             "render", "multiscan"),
+                             "mxu", "render", "multiscan"),
                     default="default")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
