@@ -7,8 +7,10 @@
 // What bounds it on the H100: latency, not bandwidth or arithmetic.  A
 // sweep reads the ~223k-row problem a few times (~20 MB) and runs at
 // most lc^2 = 4M pair tests (~0.2 GFLOP); each phase is microseconds of
-// device time, so the launch chain and the serial per-slot sums set the
-// cost.
+// device time, so the launch chain and the serial chains set the cost:
+// the per-slot sums' f32 left folds (kept in row order so the result is
+// bit for bit the plain version's), the partial tables' walk in block
+// order, and the pair scan's bound-long loop per column.
 //
 // Design: the TPU ran the sweep as one grid step over the VMEM-resident
 // problem, with every scatter and gather written as a one-hot matmul.
@@ -17,13 +19,21 @@
 // gathers and integer atomics:
 //   1. stats_partial: per-slot [cnt, sum n^, sum p, sum |p|^2] for all
 //      members and anchor-pure members, one partial table per block of
-//      kStatsRows rows, summed sequentially in row order (block b covers
-//      rows [b*kStatsRows - w, (b+1)*kStatsRows - w), the TPU kernel's
-//      column blocks of the w-padded slab);
-//   2. reduce_models: the partial tables summed in block order (a fixed
-//      order, so the sums and num_sweeps do not change from run to run),
-//      then the model refresh (acc_models semantics, pure-count fallback)
-//      and parent[s] = s;
+//      kStatsRows rows, each slot's rows summed in row order (block b
+//      covers rows [b*kStatsRows - w, (b+1)*kStatsRows - w), the TPU
+//      kernel's column blocks of the w-padded slab).  Stage-then-fold
+//      (block_fold.cuh): 512 threads load the block's rows coalesced and
+//      compute every row's 16 columns and anchor-purity test into shared
+//      memory, sort the rows by slot (row order kept within a slot), and
+//      one lane per (slot, column) folds its rows from shared memory.
+//      Only touched slots' partials are written; the flags of the others
+//      are cleared;
+//   2. reduce_models: the touched partial tables summed in block order (a
+//      fixed order, so the sums and num_sweeps do not change from run to
+//      run; an untouched table would add +0, which a fold from +0 never
+//      turns into -0, so skipping it keeps the bits), then the model
+//      refresh (acc_models semantics, pure-count fallback) and
+//      parent[s] = s;
 //   3. hop: the +-w hop/merge pass with the [bound, 6] model table in
 //      shared memory (a plain gather in place of the one-hot matmul); the
 //      merge hook is a segment-min by slot with int atomicMin (exact);
@@ -33,85 +43,74 @@
 //      TPU kernel's rounds are), with the same `covered` guard;
 //   6. apply: the collapsed parents applied to the hop result, with the
 //      change count and the largest surviving slot by int atomics.
+#include "block_fold.cuh"
 #include "sweep_common.cuh"
 
 namespace {
 
-constexpr int kStatsRows = 1024;
+constexpr int kStatsRows = block_fold::kRows;
+constexpr int kStatsCols = 16;
+using StatsSmem = block_fold::Smem<kStatsCols>;
 
-__global__ void stats_partial_kernel(
+__global__ void __launch_bounds__(block_fold::kThreads, 2)
+stats_partial_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ cnx,
     const float* __restrict__ cny, const float* __restrict__ cnz,
     const int* __restrict__ clab, const float* __restrict__ anchor,
     float* __restrict__ partial, uint8_t* __restrict__ touched, int n,
     int w, int lc, int bound, float thac, int anchor_gate, int sgn) {
-  extern __shared__ float smem[];
-  float* tab = smem;                                         // [bound][16]
-  uint8_t* tch = reinterpret_cast<uint8_t*>(tab + bound * 16);  // [bound]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  StatsSmem& sm = *reinterpret_cast<StatsSmem*>(smem_raw);
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;  // one warp
-  for (int k = lane; k < bound * 16; k += 32) tab[k] = 0.f;
-  for (int k = lane; k < bound; k += 32) tch[k] = 0;
-  __syncthreads();
-  const int r0 = max(b * kStatsRows - w, 0);
-  const int r1 = min(b * kStatsRows - w + kStatsRows, n);
-  if (lane < 16) {
-    // column `lane` of the 16-wide payload; consecutive rows of one slot
-    // accumulate in a register, which keeps the sum strictly sequential
-    // in row order (tab[s] + v_0 + v_1 + ...) without a shared-memory
-    // round trip per row
-    const int col = lane & 7;
-    const bool pure_col = lane >= 8;
-    int cur = -1;
-    float acc = 0.f;
-    for (int r = r0; r < r1; ++r) {
-      const int s = clab[r];
-      if (s >= bound) continue;  // no label (every live slot < bound)
-      const float x = px[r], y = py[r], z = pz[r];
-      const float cx = cnx[r], cy = cny[r], cz = cnz[r];
-      float v;
-      switch (col) {
-        case 0: v = 1.f; break;
-        case 1: v = cx; break;
-        case 2: v = cy; break;
-        case 3: v = cz; break;
-        case 4: v = x; break;
-        case 5: v = y; break;
-        case 6: v = z; break;
-        default: v = x * x + y * y + z * z; break;
-      }
-      if (pure_col) {
-        bool pure = false;
-        if (anchor_gate) {
-          const float* a = anchor + 3 * s;
-          pure = cmag(cx * a[0] + cy * a[1] + cz * a[2], sgn) >= thac;
-        }
-        if (!pure) v = 0.f;
-      }
-      if (s != cur) {
-        if (cur >= 0) tab[cur * 16 + lane] = acc;
-        cur = s;
-        acc = tab[s * 16 + lane];
-        if (lane == 0) tch[s] = 1;
-      }
-      acc += v;
-    }
-    if (cur >= 0) tab[cur * 16 + lane] = acc;
-  }
-  __syncthreads();
   uint8_t* tflag = touched + static_cast<size_t>(b) * lc;
-  float* part = partial + static_cast<size_t>(b) * lc * 16;
-  for (int s = lane; s < bound; s += 32) tflag[s] = tch[s];
-  for (int k = lane; k < bound * 16; k += 32) {
-    if (tch[k >> 4]) part[k] = tab[k];
+  for (int s = threadIdx.x; s < bound; s += blockDim.x) tflag[s] = 0;
+  // stage: row i of the block is row b*kStatsRows - w + i of the problem;
+  // its 16 columns [1, n^, p, |p|^2] and, for anchor-pure rows, the same
+  // again (+0 for the others, as the plain version adds them)
+  const int base = b * kStatsRows - w;
+  for (int i = threadIdx.x; i < kStatsRows; i += blockDim.x) {
+    const int r = base + i;
+    const int s = (r >= 0 && r < n) ? clab[r] : bound;
+    if (s < 0 || s >= bound) {  // no label (every live slot < bound)
+      sm.key[i] = block_fold::dead_key(i);
+      continue;
+    }
+    sm.key[i] = block_fold::live_key(s, i);
+    const float x = px[r], y = py[r], z = pz[r];
+    const float cx = cnx[r], cy = cny[r], cz = cnz[r];
+    bool pure = false;
+    if (anchor_gate) {
+      const float* a = anchor + 3 * s;
+      pure = cmag(cx * a[0] + cy * a[1] + cz * a[2], sgn) >= thac;
+    }
+    float* v = sm.val + i * StatsSmem::kStride;
+    v[0] = 1.f;
+    v[1] = cx;
+    v[2] = cy;
+    v[3] = cz;
+    v[4] = x;
+    v[5] = y;
+    v[6] = z;
+    v[7] = x * x + y * y + z * z;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[8 + c] = pure ? v[c] : 0.f;
   }
+  __syncthreads();
+  block_fold::sort_keys(sm.key);
+  const int nrun = block_fold::find_runs(sm.key, sm.seg, sm.warp_sum);
+  float* part = partial + static_cast<size_t>(b) * lc * kStatsCols;
+  block_fold::fold_runs(sm, nrun, [&](int s, int c, float acc) {
+    part[s * kStatsCols + c] = acc;
+    if (c == 0) tflag[s] = 1;
+  });
 }
 
 __global__ void reduce_models_kernel(
     const float* __restrict__ partial, const uint8_t* __restrict__ touched,
     float* __restrict__ mtab, float* __restrict__ ptab,
-    int* __restrict__ parent, int nblk, int lc, int bound, int anchor_gate) {
+    float* __restrict__ stats, int* __restrict__ parent, int nblk, int lc,
+    int bound, int anchor_gate) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= lc) return;
   float a[16];
@@ -125,6 +124,10 @@ __global__ void reduce_models_kernel(
 #pragma unroll
       for (int c = 0; c < 16; ++c) a[c] += p[c];
     }
+  }
+  if (stats) {  // the per-slot sums, for checks against the plain version
+#pragma unroll
+    for (int c = 0; c < 16; ++c) stats[16 * s + c] = a[c];
   }
   const float cnt = a[0];
   float sc, sn0, sn1, sn2, c0, c1, c2, sqm;
@@ -291,19 +294,22 @@ __global__ void apply_kernel(const int* __restrict__ hop,
 
 }  // namespace
 
+// stats: f32[lc, 16] or null; when given, receives the per-slot sums
+// [cnt, sum n^, sum p, sum |p|^2, the same over anchor-pure members].
 extern "C" int bst_compact_sweep(
     const float* px, const float* py, const float* pz, const float* nx,
     const float* ny, const float* nz, const float* cnx, const float* cny,
     const float* cnz, const uint8_t* mask, const int* clab,
     const float* anchor, float* partial, uint8_t* touched, float* mtab,
-    float* ptab, int* parent, int* hop, int* out, int* counters, int n,
-    int w, int lc, int bound, float th, float cth, float eg2, float thac,
-    float root_gate, int anchor_gate, int sgn, int jump_rounds,
-    void* stream_ptr) {
+    float* ptab, float* stats, int* parent, int* hop, int* out,
+    int* counters, int n, int w, int lc, int bound, float th, float cth,
+    float eg2, float thac, float root_gate, int anchor_gate, int sgn,
+    int jump_rounds, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || bound < 1 || bound > lc) return cudaErrorInvalidValue;
+  if (n <= 0 || bound < 1 || bound > lc || lc >= block_fold::kNoId)
+    return cudaErrorInvalidValue;
   WindowParams p{th, cth, eg2, lc, sgn};
-  const int smem_stats = bound * 16 * 4 + bound;
+  const int smem_stats = sizeof(StatsSmem);
   const int smem_hop = bound * 6 * 4;
   const int smem_jump = 2 * lc * 4;
   cudaFuncSetAttribute(stats_partial_kernel,
@@ -313,19 +319,26 @@ extern "C" int bst_compact_sweep(
                        smem_hop);
   cudaFuncSetAttribute(jump_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_jump);
-  cudaMemsetAsync(counters, 0, 2 * sizeof(int), stream);
+  cudaError_t err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int nblk = (n + w + kStatsRows - 1) / kStatsRows;
-  stats_partial_kernel<<<nblk, 32, smem_stats, stream>>>(
+  stats_partial_kernel<<<nblk, block_fold::kThreads, smem_stats, stream>>>(
       px, py, pz, cnx, cny, cnz, clab, anchor, partial, touched, n, w, lc,
       bound, thac, anchor_gate, sgn);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   reduce_models_kernel<<<(lc + 127) / 128, 128, 0, stream>>>(
-      partial, touched, mtab, ptab, parent, nblk, lc, bound, anchor_gate);
+      partial, touched, mtab, ptab, stats, parent, nblk, lc, bound,
+      anchor_gate);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int rows_blocks = (n + 255) / 256;
   hop_kernel<<<rows_blocks, 256, smem_hop, stream>>>(
       px, py, pz, nx, ny, nz, mask, clab, mtab, hop, parent, n, w, bound, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   pairs_kernel<<<(bound + 127) / 128, 128, 0, stream>>>(ptab, parent, bound,
                                                         p, root_gate);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   jump_kernel<<<1, 1024, smem_jump, stream>>>(parent, lc, bound, jump_rounds);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   apply_kernel<<<rows_blocks, 256, 0, stream>>>(hop, clab, parent, out,
                                                 counters, n, lc);
   return static_cast<int>(cudaGetLastError());

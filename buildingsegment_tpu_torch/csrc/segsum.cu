@@ -14,21 +14,35 @@
 // moments[s] += (xx, yy, zz, xy, xz, yz) of d = p - q[s], q the coarse
 // plane centers.
 //
-// What bounds it on the H100: latency.  It reads 36 B a row (about 8 MB
-// at the slice's 223k rows) and does 6 products a row; the serial
-// row-order sums, which keep the result independent of scheduling, set
-// the time.
+// What bounds it on the H100: the ordered adds, not bytes.  It reads 36 B
+// a live row (about 8 MB at the slice's 223k rows, ~2.4 us at 3.35 TB/s)
+// and does 6 products a row; the row-order sums, which keep the result
+// independent of scheduling and equal to the plain version's bit for bit,
+// are f32 left folds that cannot be split: per block one chain as long as
+// an id's rows there, then one chain over the blocks per (id, column).
 //
 // Design: the TPU kernel accumulated one-hot matmuls in a VMEM table
 // carried across its sequential grid.  Hopper's blocks run in parallel,
-// so the sums take the fixed order of csrc/compact_sweep.cu: block b owns
-// rows [b*kPaymomRows, (b+1)*kPaymomRows) and sums them in row order
-// into its own partial table (lanes 0-13 of one warp each own one
-// column; a run of equal ids accumulates in a register), then a second
-// kernel adds the partial tables in block order.  The plain version
-// reproduces that order, so both agree bit for bit; the count column is
-// exact.
-//
+// so the sums take a fixed order: block b owns rows
+// [b*kPaymomRows, (b+1)*kPaymomRows) and sums each id's rows there in row
+// order, then a second kernel adds the block partials in block order.
+// The plain version (ops/segsum.py block_order_sums) takes the same
+// order, so both agree bit for bit; the count column is exact.
+//   partial: stage-then-fold (block_fold.cuh).  512 threads load the
+//     block's ids, payload rows and q[id] coalesced and compute every
+//     row's 14 columns (the 8 payload sums and the 6 products of
+//     d = p - q[id]) into shared memory; the rows are sorted by id (row
+//     order kept within an id) and one lane per (id, column) folds its
+//     rows from shared memory.  Only the ids the block touches write a
+//     partial row; a per-(block, id) flag marks them (cleared for the
+//     rest), so an untouched row is never written or read;
+//   reduce: one 512-thread block per id.  Each round every thread loads
+//     one block's flag and, if set, its partial row into a shared stage,
+//     loading the next round while 14 lanes fold the current one, column
+//     by column in block order.  An untouched block adds +0.f: a fold from
+//     +0 never yields -0, so that keeps the bits the plain version's
+//     zero partial gives.
+
 // lookup: out[i] = lut[id_i] for 0 <= id_i < bound (bound =
 // ceil128(n_live), capped at the table), else 0: one thread a row, a
 // direct gather (the TPU kernel's one-hot matmul over the live chunks).
@@ -62,71 +76,113 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_fold.cuh"
+
 namespace {
 
-constexpr int kPaymomRows = 1024;
-constexpr int kCols = 16;  // 8 payload sums + 6 moments, padded
+constexpr int kPaymomRows = block_fold::kRows;
+constexpr int kCols = 16;     // partial row: 8 payload sums + 6 moments, padded
+constexpr int kSumCols = 14;  // the columns summed
+using PaymomSmem = block_fold::Smem<kSumCols>;
 
-__global__ void paymom_partial_kernel(
-    const int* __restrict__ ids, const float* __restrict__ payload,
-    const float* __restrict__ q, int nq, float* __restrict__ partial, int n,
-    int bound) {
+__global__ void __launch_bounds__(block_fold::kThreads, 2)
+paymom_partial_kernel(const int* __restrict__ ids,
+                      const float* __restrict__ payload,
+                      const float* __restrict__ q, int nq,
+                      float* __restrict__ partial,
+                      uint8_t* __restrict__ touched, int n, int bound) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PaymomSmem& sm = *reinterpret_cast<PaymomSmem*>(smem_raw);
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;  // one warp
-  float* part = partial + static_cast<size_t>(b) * bound * kCols;
-  for (int k = lane; k < bound * kCols; k += 32) part[k] = 0.f;
-  __syncthreads();
-  if (lane >= 14) return;
-  const int r0 = b * kPaymomRows;
-  const int r1 = min(r0 + kPaymomRows, n);
-  int cur = -1;
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const int s = ids[r];
-    if (s < 0 || s >= bound) continue;
+  uint8_t* tflag = touched + static_cast<size_t>(b) * bound;
+  for (int s = threadIdx.x; s < bound; s += blockDim.x) tflag[s] = 0;
+  const int base = b * kPaymomRows;
+  for (int i = threadIdx.x; i < kPaymomRows; i += blockDim.x) {
+    const int r = base + i;
+    const int s = r < n ? ids[r] : -1;
+    if (s < 0 || s >= bound) {
+      sm.key[i] = block_fold::dead_key(i);
+      continue;
+    }
+    sm.key[i] = block_fold::live_key(s, i);
     const float* a = payload + static_cast<size_t>(r) * 8;
-    float v;
-    if (lane < 8) {
-      v = a[lane];
-    } else {
-      const bool hq = s < nq;
-      const float dx = a[4] - (hq ? q[3 * s] : 0.f);
-      const float dy = a[5] - (hq ? q[3 * s + 1] : 0.f);
-      const float dz = a[6] - (hq ? q[3 * s + 2] : 0.f);
-      switch (lane) {
-        case 8: v = dx * dx; break;
-        case 9: v = dy * dy; break;
-        case 10: v = dz * dz; break;
-        case 11: v = dx * dy; break;
-        case 12: v = dx * dz; break;
-        default: v = dy * dz; break;
-      }
-    }
-    if (s != cur) {
-      if (cur >= 0) part[cur * kCols + lane] = acc;
-      cur = s;
-      acc = part[s * kCols + lane];
-    }
-    acc += v;
+    float* v = sm.val + i * PaymomSmem::kStride;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = a[c];
+    const bool hq = s < nq;
+    const float dx = v[4] - (hq ? q[3 * s] : 0.f);
+    const float dy = v[5] - (hq ? q[3 * s + 1] : 0.f);
+    const float dz = v[6] - (hq ? q[3 * s + 2] : 0.f);
+    v[8] = dx * dx;
+    v[9] = dy * dy;
+    v[10] = dz * dz;
+    v[11] = dx * dy;
+    v[12] = dx * dz;
+    v[13] = dy * dz;
   }
-  if (cur >= 0) part[cur * kCols + lane] = acc;
+  __syncthreads();
+  block_fold::sort_keys(sm.key);
+  const int nrun = block_fold::find_runs(sm.key, sm.seg, sm.warp_sum);
+  float* part = partial + static_cast<size_t>(b) * bound * kCols;
+  block_fold::fold_runs(sm, nrun, [&](int s, int c, float acc) {
+    part[s * kCols + c] = acc;
+    if (c == 0) tflag[s] = 1;
+  });
 }
 
-__global__ void paymom_reduce_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ sums,
-                                     float* __restrict__ moments, int nblk,
-                                     int bound) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= bound * kCols) return;
-  const int s = k / kCols, c = k % kCols;
-  if (c >= 14) return;
-  float a = 0.f;
-  for (int b = 0; b < nblk; ++b)
-    a += partial[static_cast<size_t>(b) * bound * kCols + k];
-  if (c < 8)
-    sums[s * 8 + c] = a;
-  else
-    moments[s * 6 + c - 8] = a;
+constexpr int kReduceThreads = 512;  // partial blocks staged a round
+constexpr int kStageStride = kSumCols + 1;
+
+__global__ void __launch_bounds__(kReduceThreads)
+paymom_reduce_kernel(const float* __restrict__ partial,
+                     const uint8_t* __restrict__ touched,
+                     float* __restrict__ sums, float* __restrict__ moments,
+                     int nblk, int bound) {
+  __shared__ float stage[kReduceThreads * kStageStride];
+  const int s = blockIdx.x;
+  const int t = threadIdx.x;
+  // thread t loads partial block b0 + t of the round
+  auto load = [&](int b0, float* v) {
+    const int b = b0 + t;
+#pragma unroll
+    for (int c = 0; c < kSumCols; ++c) v[c] = 0.f;
+    if (b < nblk && touched[static_cast<size_t>(b) * bound + s]) {
+      // partial rows are 64 B and the table 16 B aligned
+      const float4* p = reinterpret_cast<const float4*>(
+          partial + (static_cast<size_t>(b) * bound + s) * kCols);
+      const float4 a0 = p[0], a1 = p[1], a2 = p[2], a3 = p[3];
+      v[0] = a0.x; v[1] = a0.y; v[2] = a0.z; v[3] = a0.w;
+      v[4] = a1.x; v[5] = a1.y; v[6] = a1.z; v[7] = a1.w;
+      v[8] = a2.x; v[9] = a2.y; v[10] = a2.z; v[11] = a2.w;
+      v[12] = a3.x; v[13] = a3.y;
+    }
+  };
+  float v[kSumCols];
+  load(0, v);
+  float acc = 0.f;  // thread t < kSumCols: column t
+  for (int b0 = 0; b0 < nblk; b0 += kReduceThreads) {
+#pragma unroll
+    for (int c = 0; c < kSumCols; ++c) stage[t * kStageStride + c] = v[c];
+    __syncthreads();
+    if (b0 + kReduceThreads < nblk) load(b0 + kReduceThreads, v);
+    if (t < kSumCols) {
+      const int cnt = min(kReduceThreads, nblk - b0);
+      int j = 0;
+      for (; j + 8 <= cnt; j += 8) {
+        float u[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) u[k] = stage[(j + k) * kStageStride + t];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc += u[k];
+      }
+      for (; j < cnt; ++j) acc += stage[j * kStageStride + t];
+    }
+    __syncthreads();
+  }
+  if (t < 8)
+    sums[s * 8 + t] = acc;
+  else if (t < kSumCols)
+    moments[s * 6 + t - 8] = acc;
 }
 
 __global__ void lookup_kernel(const int* __restrict__ ids,
@@ -195,18 +251,26 @@ __global__ void segsum_reduce_kernel(const float* __restrict__ partial,
 
 extern "C" {
 
+// partial: f32[nblk, bound, 16], touched: u8[nblk, bound] scratch, nblk =
+// ceil(n / kPaymomRows); sums f32[>= bound, 8] and moments f32[>= bound, 6]
+// get rows < bound.
 int bst_paymom(const int* ids, const float* payload, const float* q, int nq,
-               float* partial, float* sums, float* moments, int n, int bound,
-               void* stream_ptr) {
+               float* partial, uint8_t* touched, float* sums, float* moments,
+               int n, int bound, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || bound < 0) return cudaErrorInvalidValue;
+  if (n <= 0 || bound < 0 || bound >= block_fold::kNoId)
+    return cudaErrorInvalidValue;
   if (bound == 0) return static_cast<int>(cudaGetLastError());
   const int nblk = (n + kPaymomRows - 1) / kPaymomRows;
-  paymom_partial_kernel<<<nblk, 32, 0, stream>>>(ids, payload, q, nq,
-                                                 partial, n, bound);
-  const int total = bound * kCols;
-  paymom_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-      partial, sums, moments, nblk, bound);
+  const int smem = sizeof(PaymomSmem);
+  cudaFuncSetAttribute(paymom_partial_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  paymom_partial_kernel<<<nblk, block_fold::kThreads, smem, stream>>>(
+      ids, payload, q, nq, partial, touched, n, bound);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  paymom_reduce_kernel<<<bound, kReduceThreads, 0, stream>>>(
+      partial, touched, sums, moments, nblk, bound);
   return static_cast<int>(cudaGetLastError());
 }
 

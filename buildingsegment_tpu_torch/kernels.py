@@ -58,7 +58,7 @@ _SOURCES = (
     "refine_sweep.cu", "segsum.cu", "adopt.cu", "knn_exact.cu",
     "stats_mxu.cu",
 )
-_HEADERS = ("sweep_common.cuh",)
+_HEADERS = ("sweep_common.cuh", "block_fold.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -165,7 +165,7 @@ def _bind() -> None:
     lib.bst_label_sweep.argtypes = [_P] * 16 + [_I, _I, _F, _F, _F, _I, _I, _P]
     lib.bst_label_sweep.restype = _I
     lib.bst_compact_sweep.argtypes = (
-        [_P] * 20 + [_I] * 4 + [_F] * 5 + [_I] * 3 + [_P]
+        [_P] * 21 + [_I] * 4 + [_F] * 5 + [_I] * 3 + [_P]
     )
     lib.bst_compact_sweep.restype = _I
     lib.bst_stats_sweep.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
@@ -173,7 +173,7 @@ def _bind() -> None:
     lib.bst_refine_sweep.argtypes = (
         [_P] * 9 + [_I, _P, _I, _I, _F, _F, _F, _I, _I, _I, _P]
     )
-    lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
+    lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P]
     lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
     lib.bst_adopt.argtypes = [_P] * 8 + [_I, _F, _F, _I, _P]
     lib.bst_knn_exact.argtypes = [_P] * 10 + [_I] * 5 + [_P]
@@ -249,20 +249,30 @@ def label_sweep_cuda(
 #: rows per stats block of the compact sweep (kStatsRows in
 #: csrc/compact_sweep.cu; block b covers rows [b·1024 − w, (b+1)·1024 − w))
 COMPACT_STATS_ROWS = 1024
+#: ids the stage-then-fold sums take (csrc/block_fold.cuh): below 2^21 − 1
+FOLD_ID_LIMIT = (1 << 21) - 1
 
 
 def compact_sweep_cuda(
     pos, nrm, cnrm, mask, clabel, anchor, bound, *, lc, w, th_thickness,
     th_normal_cos, edge_gate2, root_gate, th_anchor_cos, anchor_gate,
-    signed=False, jump_rounds=2,
+    signed=False, jump_rounds=2, stats_out=None,
 ):
     """CUDA ``compact_sweep`` (csrc/compact_sweep.cu); see
-    :func:`buildingsegment_tpu_torch.ops.compact_sweep.compact_sweep`."""
+    :func:`buildingsegment_tpu_torch.ops.compact_sweep.compact_sweep`.
+    ``stats_out``, a CUDA f32[lc, 16], receives the per-slot sums the
+    sweep computed (``ops.compact_sweep.compact_slot_stats``), for
+    checks against the plain version."""
     n = clabel.shape[0]
     if clabel.dtype != torch.int32 or not clabel.is_cuda:
         raise ValueError("clabel: need a CUDA int32 tensor")
-    if not 1 <= bound <= lc:
-        raise ValueError(f"slot bound {bound} outside [1, {lc}]")
+    if not 1 <= bound <= lc < FOLD_ID_LIMIT:
+        raise ValueError(f"slot bound {bound} outside [1, {lc}], or "
+                         f"{lc} slots not below {FOLD_ID_LIMIT}")
+    if stats_out is not None:
+        _cuda_tensor(stats_out, torch.float32, (lc, 16), "stats_out")
+        if not stats_out.is_contiguous():
+            raise ValueError("stats_out: need a contiguous tensor")
     comps = [
         _f32(t, n, name)
         for group, name in ((pos, "pos"), (nrm, "nrm"), (cnrm, "cnrm"))
@@ -289,8 +299,10 @@ def compact_sweep_cuda(
         *[t.data_ptr() for t in comps], mask_u8.data_ptr(),
         clabel.data_ptr(),
         anchor.data_ptr(), partial.data_ptr(), touched.data_ptr(),
-        mtab.data_ptr(), ptab.data_ptr(), parent.data_ptr(),
-        hop.data_ptr(), out.data_ptr(), counters.data_ptr(),
+        mtab.data_ptr(), ptab.data_ptr(),
+        None if stats_out is None else stats_out.data_ptr(),
+        parent.data_ptr(), hop.data_ptr(), out.data_ptr(),
+        counters.data_ptr(),
         n, w, lc, int(bound), th_thickness, th_normal_cos, edge_gate2,
         th_anchor_cos, root_gate, int(anchor_gate),
         int(signed), jump_rounds, _stream(clabel),
@@ -322,8 +334,9 @@ def _stats_ranks(k, w, radius, max_nn):
 
 
 #: rows summed in order by one block of the payload-moment sums
-#: (kPaymomRows in csrc/segsum.cu) and of the adoption sums (kAdoptRows
-#: in csrc/adopt.cu); the plain versions use the same blocks
+#: (kPaymomRows in csrc/segsum.cu, block_fold::kRows) and of the adoption
+#: sums (kAdoptRows in csrc/adopt.cu); the plain versions use the same
+#: blocks
 PAYMOM_ROWS = 1024
 ADOPT_ROWS = 256
 ADOPT_LANES = 128
@@ -457,13 +470,18 @@ def payload_moment_sums_cuda(ids, payload, q, n_live, *, table_cap):
     moments = torch.zeros((cap128, 6), dtype=torch.float32, device=dev)
     if bound == 0:  # no live id: nothing to sum, nothing launched
         return sums, moments
+    if bound >= FOLD_ID_LIMIT:
+        raise ValueError(f"payload_moment_sums: live bound {bound} not below "
+                         f"{FOLD_ID_LIMIT}")
     nblk = -(-n // PAYMOM_ROWS)
+    # written only where a block touches an id (flagged in ``touched``)
     partial = torch.empty((nblk, bound, 16), dtype=torch.float32, device=dev)
+    touched = torch.empty((nblk, bound), dtype=torch.uint8, device=dev)
     lib = _load()
     err = lib.bst_paymom(
         ids.data_ptr(), payload.data_ptr(), q.data_ptr(), q.shape[0],
-        partial.data_ptr(), sums.data_ptr(), moments.data_ptr(), n, bound,
-        _stream(ids),
+        partial.data_ptr(), touched.data_ptr(), sums.data_ptr(),
+        moments.data_ptr(), n, bound, _stream(ids),
     )
     _check(lib, err, "payload_moment_sums")
     launch_counts["payload_moment_sums"] += 1

@@ -34,7 +34,8 @@ from buildingsegment_tpu_torch import kernels
 from buildingsegment_tpu_torch.ops.segsum import block_order_sums
 from buildingsegment_tpu_torch.ops.window_sweep import label_sweep_reference
 
-__all__ = ["compact_sweep", "compact_sweep_reference", "COMPACT_L"]
+__all__ = ["compact_sweep", "compact_sweep_reference", "compact_slot_stats",
+           "COMPACT_L"]
 
 #: compact slot capacity (the TPU kernel's measured choice, kept so the
 #: two packages switch to the compact loop at the same live count)
@@ -46,13 +47,15 @@ def _dot3(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-def compact_sweep_reference(
-    pos, nrm, cnrm, mask, clabel, anchor, bound, *, lc, w, th_thickness,
-    th_normal_cos, edge_gate2, root_gate, th_anchor_cos, anchor_gate,
-    signed=False, jump_rounds=2,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`compact_sweep`, section by
-    section after the TPU kernel."""
+def compact_slot_stats(pos, cnrm, clabel, anchor, bound, *, lc, w,
+                       th_anchor_cos, anchor_gate, signed=False):
+    """Sections A-C of the sweep: f32[lc, 16] per-slot sums [cnt, Σn̂, Σp,
+    Σ|p|²] over the members (slot < ``bound``) and the same over the
+    anchor-pure members (normal agrees with the slot's anchor; zero
+    without ``anchor_gate``).  Block b of ``kernels.COMPACT_STATS_ROWS``
+    rows covers rows [b·1024 − w, (b+1)·1024 − w) and adds each slot's
+    rows in row order from +0; the block tables are then added in block
+    order (the order the CUDA kernel keeps)."""
     n = clabel.shape[0]
     dev = clabel.device
     cmag = (lambda x: x) if signed else torch.abs
@@ -60,8 +63,6 @@ def compact_sweep_reference(
     cnx, cny, cnz = cnrm
     valid = clabel < bound
     slot = clabel.clamp(max=lc - 1).long()
-
-    # A-C. per-slot stats, per 1024-row block in row order, then blocks
     sq = px * px + py * py + pz * pz
     base = torch.stack([torch.ones_like(px), cnx, cny, cnz, px, py, pz, sq], 1)
     if anchor_gate:
@@ -75,7 +76,25 @@ def compact_sweep_reference(
     rows = kernels.COMPACT_STATS_ROWS
     nblk = -(-(n + w) // rows)
     blk = (torch.arange(n, device=dev) + w) // rows
-    acc = block_order_sums(blk[valid], slot[valid], payload[valid], nblk, lc)
+    return block_order_sums(blk[valid], slot[valid], payload[valid], nblk, lc)
+
+
+def compact_sweep_reference(
+    pos, nrm, cnrm, mask, clabel, anchor, bound, *, lc, w, th_thickness,
+    th_normal_cos, edge_gate2, root_gate, th_anchor_cos, anchor_gate,
+    signed=False, jump_rounds=2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`compact_sweep`, section by
+    section after the TPU kernel."""
+    dev = clabel.device
+    cmag = (lambda x: x) if signed else torch.abs
+    valid = clabel < bound
+    slot = clabel.clamp(max=lc - 1).long()
+
+    # A-C. per-slot stats, per 1024-row block in row order, then blocks
+    acc = compact_slot_stats(pos, cnrm, clabel, anchor, bound, lc=lc, w=w,
+                             th_anchor_cos=th_anchor_cos,
+                             anchor_gate=anchor_gate, signed=signed)
 
     # D. models
     cnt = acc[:, 0]

@@ -22,7 +22,9 @@ Phases, in order; the first failure exits non-zero:
    every kernel wrapper;
 4. hold each of the twelve kernels the paths launch against its plain
    PyTorch version on the inputs of every call the paths made — all
-   must match bit for bit — and time both with CUDA events at the
+   must match bit for bit; for #2 the per-slot sums of its stats phase
+   too (``stats_out`` against ``compact_slot_stats``) — and time both
+   with CUDA events at the
    largest call, beside the kernel's bound (the bytes the function must
    move over 3.35 TB/s or the f32 operations it needs over 67 TFLOP/s,
    the H100 SXM's published peaks, counted from this run's data; #15
@@ -82,7 +84,9 @@ Phases, in order; the first failure exits non-zero:
    no path calls, is held bit for bit against its plain version on the
    ids and live bounds of the default path's ``table_lookup`` calls
    (slice scene and capacity 1,179,648) with a seeded f32[cap, 3] table,
-   and timed at the largest;
+   and timed at the largest.  #2 and #11, the stage-then-fold kernels,
+   are reported at both sizes: the slice scene's default path and
+   config 5's scan 0 (#11 at 1,179,648 rows);
 11. the ``mxu`` path at full size: config 5's scan 0 (1,082,304 points,
    capacity 1,179,648) through ``segment_file``: every #15 and #16 call
    held bit for bit; #15 and #3 timed on the same captured stats input,
@@ -434,9 +438,32 @@ def spying(torch, hooks, seen):
             setattr(mod, attr, orig[k])
 
 
+def with_slot_stats(torch, cuda_fn, plain_fn):
+    """#2's pair for the bit-for-bit check: the sweep's outputs and the
+    per-slot sums of its stats phase, the kernel's (``stats_out``) and the
+    plain version's (``compact_slot_stats``)."""
+    from buildingsegment_tpu_torch.ops.compact_sweep import compact_slot_stats
+
+    def cuda(*args, **kw):
+        stats = torch.empty((kw["lc"], 16), dtype=torch.float32,
+                            device=args[4].device)
+        return (*cuda_fn(*args, stats_out=stats, **kw), stats)
+
+    def plain(*args, **kw):
+        pos, _nrm, cnrm, _mask, clab, anchor, bound = args
+        stats = compact_slot_stats(
+            pos, cnrm, clab, anchor, bound, lc=kw["lc"], w=kw["w"],
+            th_anchor_cos=kw["th_anchor_cos"], anchor_gate=kw["anchor_gate"],
+            signed=kw.get("signed", False))
+        return (*plain_fn(*args, **kw), stats)
+    return cuda, plain
+
+
 def hold_calls(torch, name, path, calls, cuda_fn, plain_fn):
     """Every captured call of one kernel against its plain version, bit for
     bit; returns the largest |kernel − plain| (0.0)."""
+    if name == "compact_sweep":
+        cuda_fn, plain_fn = with_slot_stats(torch, cuda_fn, plain_fn)
     err = 0.0
     for n, args, kw in calls:
         k_out = cuda_fn(*args, **kw)
@@ -1083,10 +1110,21 @@ def main():
     # 11. the mxu path at full size
     mxu_full = mxu_full_phase(torch, np, hooks, cuda_fns, card, labels0)
 
+    # the stage-then-fold kernels at both sizes
+    fold = {name: {where: {k: results[(path, name)][k]
+                           for k in ("rows", "ms", "plain_ms", "bound_ms")}
+                   for where, path in (("slice_default", "default"),
+                                       ("config5_scan0", "render"))}
+            for name in ("compact_sweep", "payload_moment_sums")}
+    for name, rec in fold.items():
+        print(f"{name}: " + ", ".join(
+            f"{where} {r['rows']} rows {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.6f})" for where, r in rec.items()) + f" ({card})")
     print(json.dumps({"points": len(pts), "card": card, "build_s": t_build,
                       "paths": summary, "stages_min_max_s": spread,
                       "config2": config2, "multiscan": multiscan,
-                      "mxu_pairs": mxu_pairs, "mxu_full": mxu_full}))
+                      "mxu_pairs": mxu_pairs, "mxu_full": mxu_full,
+                      "fold_kernels": fold}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
         path = MAIN_PATH[name]

@@ -20,6 +20,7 @@ from buildingsegment_tpu_torch.ops.adopt import (
 )
 from buildingsegment_tpu_torch.ops.compact_sweep import (
     COMPACT_L,
+    compact_slot_stats,
     compact_sweep_reference,
 )
 from buildingsegment_tpu_torch.ops.fused import knn_normals_window_sorted
@@ -491,5 +492,97 @@ def test_brute_knn_ignores_tf32(cuda):
         got = knn(pos, mask, 50)
     finally:
         torch.set_float32_matmul_precision(prev)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+# The stage-then-fold sums (csrc/block_fold.cuh: #2's stats phase, #11):
+# block b of 1024 rows covers rows [b·1024 − w, (b+1)·1024 − w), w = 0 for
+# #11.  Each case is one of the kernels' hard shapes; n = 7000 is not a
+# multiple of 1024.
+_FOLD_CASES = ("one_id_block", "full_table", "run_edges", "dead_rows")
+
+
+def _fold_ids(case, n, bound, w, dead, rng):
+    """int32[n] row ids for one case; ``dead`` holds ids that do not
+    count (below 0, at or above the bound, "no label")."""
+    ids = np.repeat(rng.integers(0, bound, n // 40 + 1), 40)[:n]
+    if case == "one_id_block":  # the longest fold: one id over a block
+        ids[1024 - w:2048 - w] = 5
+    elif case == "full_table":  # one block touching 1024 ids, bound − 1 too
+        ids[2048 - w:3072 - w] = rng.permutation(bound)[:1024]
+        ids[2048 - w] = bound - 1
+    elif case == "run_edges":  # runs across every block edge (block 0's
+        # edge sits at 1024 − w)
+        for edge in range(1024 - w, n, 1024):
+            ids[edge - 37:edge + 41] = rng.integers(0, bound)
+    else:  # dead rows scattered, and one block with no live row
+        pick = rng.random(n) < 0.2
+        ids[pick] = rng.choice(dead, int(pick.sum()))
+        ids[3072 - w:4096 - w] = dead[0]
+    return ids.astype(np.int32)
+
+
+def _unit_rows(rng, n):
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("case", _FOLD_CASES)
+def test_compact_stats_fold_matches_plain(cuda, case):
+    """#2 on the stage-then-fold hard cases: the per-slot sums of its
+    stats phase (``stats_out``), the labels and the counters equal the
+    plain version's bit for bit."""
+    rng = np.random.default_rng(41)
+    n, w, lc = 7000, 16, COMPACT_L
+    bound = lc if case == "full_table" else 1500
+    dead = np.array([lc] if bound == lc else [lc, bound + 3])
+    clab = torch.from_numpy(_fold_ids(case, n, bound, w, dead, rng)).to(cuda)
+    pos = torch.from_numpy(rng.uniform(0, 3e4, (n, 3)).astype(np.float32))
+    nrm = torch.from_numpy(_unit_rows(rng, n))
+    pos, nrm = pos.to(cuda), nrm.to(cuda)
+    cn = canonicalize_normals(nrm)
+    mask = torch.from_numpy(rng.random(n) < 0.95).to(cuda)
+    anchor = torch.from_numpy(_unit_rows(rng, lc)).to(cuda)
+    kw = dict(lc=lc, w=w, th_thickness=TH, th_normal_cos=CTH,
+              edge_gate2=EDGE ** 2, root_gate=EDGE, th_anchor_cos=0.3,
+              anchor_gate=True)
+    args = (_cols(pos), _cols(nrm), _cols(cn), mask, clab, anchor, bound)
+    stats = torch.empty((lc, 16), dtype=torch.float32, device=cuda)
+    k_lab, k_cnt = kernels.compact_sweep_cuda(*args, stats_out=stats, **kw)
+    p_lab, p_cnt = compact_sweep_reference(*args, **kw)
+    want = compact_slot_stats(_cols(pos), _cols(cn), clab, anchor, bound,
+                              lc=lc, w=w, th_anchor_cos=0.3, anchor_gate=True)
+    assert int(stats[:, 0].sum()) == int((clab < bound).sum())
+    assert 0 < float(stats[:, 8].sum()) < float(stats[:, 0].sum())
+    assert torch.equal(stats, want)
+    assert torch.equal(k_lab, p_lab) and torch.equal(k_cnt, p_cnt)
+
+
+@pytest.mark.parametrize("case", _FOLD_CASES + ("config5_rows",))
+def test_payload_moment_sums_fold_matches_plain(cuda, case):
+    """#11 on the stage-then-fold hard cases, and at config 5's 1,179,648
+    rows (the reduce over 1,152 block partials, one id in every block):
+    sums and moments equal the plain version's bit for bit."""
+    rng = np.random.default_rng(43)
+    n = 1_179_648 if case == "config5_rows" else 7000
+    cap = 4096
+    n_live = cap if case == "full_table" else 300
+    bound = kernels.ceil128(n_live)
+    dead = np.array([-1, bound, -7, cap + 5])
+    ids = _fold_ids(case, n, bound, 0, dead, rng)
+    if case == "config5_rows":
+        ids[::50] = 0
+    pos = rng.uniform(0, 3e4, (n, 3)).astype(np.float32)
+    pay = np.concatenate([np.ones((n, 1)), _unit_rows(rng, n), pos,
+                          (pos * pos).sum(1)[:, None]], 1).astype(np.float32)
+    q = rng.uniform(0, 3e4, (n_live - 20, 3)).astype(np.float32)
+    ids_t, pay_t, q_t = (torch.from_numpy(a).to(cuda) for a in (ids, pay, q))
+    got = kernels.payload_moment_sums_cuda(ids_t, pay_t, q_t, n_live,
+                                           table_cap=cap)
+    ref = payload_moment_sums_reference(ids_t, pay_t, q_t, n_live,
+                                        table_cap=cap)
+    live = (ids >= 0) & (ids < bound)
+    assert int(got[0][:, 0].sum()) == int(live.sum())
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
