@@ -34,10 +34,11 @@
 // more.  Each thread owns one query and evaluates all C candidates of its
 // block (C = 224 at w = 48, 160 at w = 16), not only its 2w + 1, because
 // the block form defines the ranks and the gate over the whole block; the
-// stats kernel then selects both ranks by the 31-step bisection over bit
-// patterns of stats_sweep.cu over C values, about 14,000 shared-memory
-// compares a row, with one 128-thread block per SM (its [C][128] rank
-// array takes 112 KB).
+// stats kernel then selects both ranks by a 31-step bisection over the
+// bit patterns of its C values, about 14,000 shared-memory compares a row
+// (select_rank.cuh, which stats_sweep.cu uses, selects with far fewer),
+// with one 128-thread block per SM (its [C][128] rank array takes
+// 112 KB).
 //
 // Design: the TPU kernels made D, the normal cosines and the moments
 // matmuls on the MXU at HIGHEST precision (a bf16 split).  Here the

@@ -58,7 +58,7 @@ _SOURCES = (
     "refine_sweep.cu", "segsum.cu", "adopt.cu", "knn_exact.cu",
     "stats_mxu.cu",
 )
-_HEADERS = ("sweep_common.cuh", "block_fold.cuh")
+_HEADERS = ("sweep_common.cuh", "block_fold.cuh", "select_rank.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -175,7 +175,7 @@ def _bind() -> None:
     )
     lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P]
     lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
-    lib.bst_adopt.argtypes = [_P] * 8 + [_I, _F, _F, _I, _P]
+    lib.bst_adopt.argtypes = [_P] * 10 + [_I, _F, _F, _I, _P]
     lib.bst_knn_exact.argtypes = [_P] * 10 + [_I] * 5 + [_P]
     lib.bst_plane_sums.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
     lib.bst_stats_mxu.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
@@ -333,6 +333,10 @@ def _stats_ranks(k, w, radius, max_nn):
     return k - 1, (max_nn - 1) if cap_active else 0, r2
 
 
+#: widest window half-width the stats sweep takes (csrc/stats_sweep.cu
+#: stages a block's 256 rows and their 2w neighbours, 16 B each, in
+#: shared memory)
+STATS_MAX_W = 4096
 #: rows summed in order by one block of the payload-moment sums
 #: (kPaymomRows in csrc/segsum.cu, block_fold::kRows) and of the adoption
 #: sums (kAdoptRows in csrc/adopt.cu); the plain versions use the same
@@ -350,6 +354,8 @@ SEGSUM_MAX_COLS = 128
 def stats_sweep_cuda(pos, mask, *, k, w, radius, max_nn):
     """CUDA stats sweep (csrc/stats_sweep.cu); see
     :func:`buildingsegment_tpu_torch.ops.stats_sweep.stats_sweep`."""
+    if not 1 <= w <= STATS_MAX_W:
+        raise ValueError(f"stats_sweep: w={w} outside [1, {STATS_MAX_W}]")
     n = mask.shape[0]
     comps = [_f32(t, n, "pos") for t in pos]
     mask_u8 = _mask_bytes(mask, n)
@@ -564,6 +570,8 @@ def plane_adopt_cuda(payload, holes, table, rows, *, th_thickness, th_cos,
     is the f32[10, 128] lane table of ``ops.adopt.adopt_table``."""
     n = holes.shape[0]
     payload = _cuda_tensor(payload, torch.float32, (n, 8), "payload")
+    if payload.data_ptr() % 16:  # rows read as two float4s
+        payload = payload.clone()
     table = _cuda_tensor(table, torch.float32, (10, ADOPT_LANES), "table")
     rows = _cuda_tensor(rows, torch.int32, (ADOPT_LANES,), "rows")
     holes_u8 = _mask_bytes(holes, n)
@@ -571,15 +579,20 @@ def plane_adopt_cuda(payload, holes, table, rows, *, th_thickness, th_cos,
     adopted = torch.empty(n, dtype=torch.bool, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     nblk = -(-n // ADOPT_ROWS)
-    partial = torch.empty((nblk, ADOPT_LANES, 8), dtype=torch.float32,
-                          device=dev)
+    # one scratch allocation: the f32 [nblk, 128, 8] partials, written only
+    # where a block adopted rows into a lane, flagged per block (bflag)
+    # and, where that is set, per (block, lane) (lflag)
+    part_bytes = nblk * ADOPT_LANES * 8 * 4
+    scratch = torch.empty(part_bytes + nblk * (1 + ADOPT_LANES),
+                          dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
     acc = torch.empty((ADOPT_LANES, 8), dtype=torch.float32, device=dev)
     lib = _load()
     err = lib.bst_adopt(
         payload.data_ptr(), holes_u8.data_ptr(), table.data_ptr(),
-        rows.data_ptr(), adopted.data_ptr(), row.data_ptr(),
-        partial.data_ptr(), acc.data_ptr(), n, th_thickness, th_cos,
-        int(signed), _stream(row),
+        rows.data_ptr(), adopted.data_ptr(), row.data_ptr(), base,
+        base + part_bytes, base + part_bytes + nblk, acc.data_ptr(), n,
+        th_thickness, th_cos, int(signed), _stream(row),
     )
     _check(lib, err, "plane_adopt")
     launch_counts["plane_adopt"] += 1

@@ -6,7 +6,8 @@ multigrid solver consumes only two order statistics of each row's ±W
 candidate distances — the squared k-th-NN distance (the seed ball) and
 the ``max_nn``-th (the hybrid cap of the normal neighbourhood) — never
 the sorted neighbour lists.  The kernel (``csrc/stats_sweep.cu``)
-selects them exactly by bisection over the f32 bit patterns; the plain
+selects them exactly by merging sorted chunks of 16 candidates in
+registers (``csrc/select_rank.cuh``); the plain
 version takes them from the fused sweep's stable sort
 (:func:`buildingsegment_tpu_torch.ops.fused.window_moments`).  Order
 statistics are values, so both give the same bits; the moments

@@ -1110,12 +1110,14 @@ def main():
     # 11. the mxu path at full size
     mxu_full = mxu_full_phase(torch, np, hooks, cuda_fns, card, labels0)
 
-    # the stage-then-fold kernels at both sizes
+    # the redesigned kernels (stage-then-fold sums, #3's selection) at both
+    # sizes
     fold = {name: {where: {k: results[(path, name)][k]
                            for k in ("rows", "ms", "plain_ms", "bound_ms")}
                    for where, path in (("slice_default", "default"),
                                        ("config5_scan0", "render"))}
-            for name in ("compact_sweep", "payload_moment_sums")}
+            for name in ("compact_sweep", "payload_moment_sums",
+                         "stats_sweep", "plane_adopt")}
     for name, rec in fold.items():
         print(f"{name}: " + ", ".join(
             f"{where} {r['rows']} rows {r['ms']:.4f} ms (bound "

@@ -206,6 +206,61 @@ def test_stats_sweep_kernel_matches_plain(scene, radius, max_nn):
         assert torch.equal(g, r)
 
 
+# #3's hard cases (csrc/stats_sweep.cu, csrc/select_rank.cuh): every
+# window width the kernel takes (the main path's 48, the default 64, the
+# CPU tests' 32, one wider), k = 1, a cap wider than the window, a cap
+# that binds, ranks past one selection pass of 16, rows with fewer valid
+# candidates than r_k, tied distances, and n not a multiple of the
+# kernel's 256-row blocks (the sparse cloud's 7,000 rows)
+_STATS_CASES = {
+    "w32": ("scene", dict(k=15, w=32, radius=100.0, max_nn=50)),
+    "w64": ("scene", dict(k=15, w=64, radius=300.0, max_nn=50)),
+    "w100_cap_binds": ("scene", dict(k=15, w=100, radius=600.0, max_nn=50)),
+    "k1": ("scene", dict(k=1, w=48, radius=300.0, max_nn=50)),
+    "cap_wider_than_window": ("scene", dict(k=15, w=48, radius=600.0,
+                                            max_nn=100)),
+    "cap_binds": ("scene", dict(k=15, w=48, radius=600.0, max_nn=50)),
+    "deep_ranks": ("scene", dict(k=40, w=48, radius=600.0, max_nn=70)),
+    "sparse": ("sparse", dict(k=30, w=48, radius=3000.0, max_nn=20)),
+    "ties": ("ties", dict(k=15, w=48, radius=600.0, max_nn=50)),
+}
+
+
+@pytest.mark.parametrize("case", list(_STATS_CASES))
+def test_stats_sweep_kernel_hard_cases(scene, case):
+    """#3 against its plain version, bit for bit, on its hard cases."""
+    data, kw = _STATS_CASES[case]
+    if data == "sparse":
+        pos, _nrm, mask, _dk = _sparse_cloud(scene[0].device)
+    else:
+        pos, _nrm, mask = scene
+    if data == "ties":  # every row's position twice: tied distances
+        pos = pos.clone()
+        pos[1::2] = pos[0::2]
+    got = kernels.stats_sweep_cuda(_cols(pos), mask, **kw)
+    ref = stats_sweep_reference(_cols(pos), mask, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if kw["k"] == 1:
+        assert not got[0].any()
+    elif data == "sparse":  # some rows with fewer than k − 1 valid
+        # candidates (30% of the rows are valid), some with more
+        assert (got[0] > 0).sum() > 100
+        assert ((got[0] == 0) & mask).sum() > 100
+    else:
+        assert (got[0] > 0).sum() > 1000
+    if case in ("cap_binds", "w100_cap_binds"):
+        assert (got[1] == kw["max_nn"]).sum() > 1000
+
+
+def test_stats_sweep_rejects_unsupported_w(scene):
+    pos, _nrm, mask = scene
+    for w in (0, kernels.STATS_MAX_W + 1):
+        with pytest.raises(ValueError):
+            kernels.stats_sweep_cuda(_cols(pos), mask, k=15, w=w,
+                                     radius=100.0, max_nn=50)
+
+
 @pytest.mark.parametrize("signed", [False, True])
 def test_seed_sweep_kernel_matches_plain(scene, signed):
     pos, nrm, mask = scene
@@ -437,6 +492,69 @@ def test_plane_adopt_kernel_matches_plain(cuda, signed):
     assert got[0].sum() > 1000
     for g_, r in zip(got, ref):
         assert torch.equal(g_, r)
+
+
+def _adopt_problem(case, n, rng, device):
+    """A hole-adoption problem whose lanes are known: 128 planes z = 0,
+    3 m apart along x, reach 1 m; a hole row on plane l adopts lane l, a
+    hole row between two planes adopts nothing.  Returns (payload, holes,
+    table, rows, lane of each row or −1) with numpy's lanes."""
+    k = kernels.ADOPT_LANES
+    nblk = -(-n // kernels.ADOPT_ROWS)
+    lanes = np.where(rng.random(n) < 0.5, rng.integers(0, k, n), -1)
+    holes = np.repeat(rng.random(nblk) < 0.3, kernels.ADOPT_ROWS)[:n]
+    holes &= rng.random(n) < 0.7
+    if case == "distinct_lanes":  # block 3: 128 distinct lanes, shuffled
+        blk = slice(3 * kernels.ADOPT_ROWS, 4 * kernels.ADOPT_ROWS)
+        lanes[blk] = np.concatenate([rng.permutation(k)] * 2)
+        holes[blk] = True
+    # lane 7 fed by the first row of every block
+    lanes[::kernels.ADOPT_ROWS] = 7
+    holes[::kernels.ADOPT_ROWS] = True
+    # blocks 5 and 6: holes, none adopted
+    blk = slice(5 * kernels.ADOPT_ROWS, 7 * kernels.ADOPT_ROWS)
+    lanes[blk] = -1
+    holes[blk] = True
+    cx = np.arange(k, dtype=np.float32) * 3000
+    x = np.where(lanes >= 0, cx[np.maximum(lanes, 0)],
+                 cx[rng.integers(0, k - 1, n)] + 1500)
+    pos = np.stack([x + rng.uniform(-300, 300, n), rng.uniform(-300, 300, n),
+                    rng.uniform(-50, 50, n)], 1).astype(np.float32)
+    nrm = np.array([0, 0, 1]) + rng.normal(size=(n, 3)) * 0.05
+    nrm = (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+    payload = np.concatenate([np.ones((n, 1), np.float32), nrm, pos,
+                              (pos * pos).sum(1, keepdims=True)], 1)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    nk = T(np.tile(np.float32([0, 0, 1]), (k, 1)))
+    ck = T(np.stack([cx, np.zeros(k), np.zeros(k)], 1).astype(np.float32))
+    table = adopt_table(nk, ck, torch.zeros(k, device=device),
+                        (ck * ck).sum(1), torch.full((k,), 1e6, device=device),
+                        torch.ones(k, dtype=torch.bool, device=device))
+    rows = T(rng.permutation(4096)[:k].astype(np.int32))
+    return T(payload.astype(np.float32)), T(holes), table, rows, lanes
+
+
+@pytest.mark.parametrize("case,n", [("distinct_lanes", 20_000),
+                                    ("config5_rows", 1_179_648)])
+def test_plane_adopt_fold_matches_plain(cuda, case, n):
+    """#13 on its stage-then-fold hard cases, at 20,000 rows and at config
+    5's 1,179,648 (4,608 blocks): one block adopting into 128 distinct
+    lanes, one lane fed by every block, blocks with holes and no adopted
+    row; outputs and per-lane sums equal the plain version's bit for
+    bit."""
+    rng = np.random.default_rng(47)
+    payload, holes, table, rows, lanes = _adopt_problem(case, n, rng, cuda)
+    kw = dict(th_thickness=TH, th_cos=CTH)
+    got = kernels.plane_adopt_cuda(payload, holes, table, rows, **kw)
+    ref = plane_adopt_reference(payload, holes, table, rows, **kw)
+    for g_, r in zip(got, ref):
+        assert torch.equal(g_, r)
+    want = torch.from_numpy((lanes >= 0) & holes.cpu().numpy())
+    assert torch.equal(got[0].cpu(), want)
+    nblk = -(-n // kernels.ADOPT_ROWS)
+    assert int(got[2][7, 0]) >= nblk - 2  # blocks 5 and 6 adopt nothing
+    if case == "distinct_lanes":
+        assert int((got[2][:, 0] > 0).sum()) == kernels.ADOPT_LANES
 
 
 def _knn_cloud(case, device):

@@ -1,8 +1,9 @@
 """The summation order the stage-then-fold kernels keep, pinned on the CPU.
 
-``csrc/compact_sweep.cu`` (#2, per-slot stats) and ``csrc/segsum.cu``
-(#11, payload sums and moments about q) must equal their plain versions
-bit for bit.  These tests hold the plain versions against a numpy
+``csrc/compact_sweep.cu`` (#2, per-slot stats), ``csrc/segsum.cu``
+(#11, payload sums and moments about q) and ``csrc/adopt.cu`` (#13,
+per-lane sums of the adopted rows, blocks of 256 rows) must equal their
+plain versions bit for bit.  These tests hold the plain versions against a numpy
 float32 oracle of the documented order: block b of 1024 rows adds each
 id's rows one after another in row order from +0, then the block tables
 are added in block order from +0.  #2's blocks are shifted by the window
@@ -17,6 +18,10 @@ from buildingsegment_tpu_torch import kernels
 from buildingsegment_tpu_torch.ops.compact_sweep import (
     COMPACT_L,
     compact_slot_stats,
+)
+from buildingsegment_tpu_torch.ops.adopt import (
+    adopt_table,
+    plane_adopt_reference,
 )
 from buildingsegment_tpu_torch.ops.segsum import payload_moment_sums_reference
 
@@ -131,3 +136,57 @@ def test_payload_moment_sums_left_fold_order(case):
     _assert_bits(sums[:bound].numpy(), want[:, :8])
     _assert_bits(moments[:bound].numpy(), want[:, 8:])
     assert not sums[bound:].any() and not moments[bound:].any()
+
+
+@pytest.mark.parametrize("case", ["scattered", "distinct_lanes"])
+def test_plane_adopt_left_fold_order(case):
+    """#13's per-lane sums over 256-row blocks equal the oracle bit for
+    bit: 128 planes z = 0, 3 m apart along x, reach 1 m, so a hole row on
+    plane l adopts lane l and one between two planes adopts nothing;
+    lane 7 takes a row of every block, blocks 5 and 6 hold holes and
+    adopt nothing, and in "distinct_lanes" block 3 adopts into all 128
+    lanes, shuffled."""
+    rng = np.random.default_rng(53)
+    n, k, blk_rows = 20_000, kernels.ADOPT_LANES, kernels.ADOPT_ROWS
+    nblk = -(-n // blk_rows)
+    lanes = np.where(rng.random(n) < 0.5, rng.integers(0, k, n), -1)
+    holes = np.repeat(rng.random(nblk) < 0.3, blk_rows)[:n]
+    holes &= rng.random(n) < 0.7
+    if case == "distinct_lanes":
+        lanes[3 * blk_rows:4 * blk_rows] = np.concatenate(
+            [rng.permutation(k)] * 2)
+        holes[3 * blk_rows:4 * blk_rows] = True
+    lanes[::blk_rows] = 7
+    holes[::blk_rows] = True
+    lanes[5 * blk_rows:7 * blk_rows] = -1
+    holes[5 * blk_rows:7 * blk_rows] = True
+    cx = np.arange(k, dtype=np.float32) * 3000
+    x = np.where(lanes >= 0, cx[np.maximum(lanes, 0)],
+                 cx[rng.integers(0, k - 1, n)] + 1500)
+    pos = np.stack([x + rng.uniform(-300, 300, n), rng.uniform(-300, 300, n),
+                    rng.uniform(-50, 50, n)], 1).astype(np.float32)
+    nrm = np.array([0, 0, 1]) + rng.normal(size=(n, 3)) * 0.05
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    payload = np.concatenate([np.ones((n, 1)), nrm, pos,
+                              (pos * pos).sum(1, keepdims=True)],
+                             1).astype(np.float32)
+    t = torch.from_numpy
+    ck = t(np.stack([cx, np.zeros(k), np.zeros(k)], 1).astype(np.float32))
+    table = adopt_table(t(np.tile(np.float32([0, 0, 1]), (k, 1))), ck,
+                        torch.zeros(k), (ck * ck).sum(1),
+                        torch.full((k,), 1e6), torch.ones(k, dtype=torch.bool))
+    rows = t(rng.permutation(4096)[:k].astype(np.int32))
+    adopted, row, acc = plane_adopt_reference(
+        t(payload), t(holes), table, rows, th_thickness=300.0, th_cos=0.88)
+
+    got = (lanes >= 0) & holes
+    np.testing.assert_array_equal(adopted.numpy(), got)
+    np.testing.assert_array_equal(row.numpy(),
+                                  np.where(got, rows.numpy()[lanes], 0))
+    idx = np.nonzero(got)[0]
+    want = _left_fold_oracle(idx // blk_rows, lanes[idx], payload[idx],
+                             nblk, k)
+    _assert_bits(acc.numpy(), want)
+    assert int(want[7, 0]) >= nblk - 2
+    if case == "distinct_lanes":
+        assert (want[:, 0] > 0).all()

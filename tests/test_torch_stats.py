@@ -94,6 +94,33 @@ def test_stats_plain_matches_pallas_kernel(sorted_cloud, k, w, radius,
     np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=1e-4)
 
 
+@pytest.mark.parametrize(
+    "k,w,radius,max_nn",
+    [(15, 48, 100.0, 50), (15, 32, 300.0, None), (15, 48, 600.0, 50)],
+    ids=["production", "no_cap", "cap_binds"],
+)
+def test_cap_skip_is_exact(sorted_cloud, k, w, radius, max_nn):
+    """What csrc/stats_sweep.cu relies on to skip the cap's selection: on
+    every row with fewer than max_nn − 1 candidates within the radius,
+    the moments equal those over d ≤ r² alone, bit for bit."""
+    spos, smask = sorted_cloud
+    mask = torch.from_numpy(smask)
+    kw = dict(k=k, w=w, radius=radius)
+    dk, s0, s1, s2 = stats_sweep_reference(_cols(spos), mask,
+                                           max_nn=max_nn, **kw)
+    _, r0, r1, r2 = stats_sweep_reference(_cols(spos), mask, max_nn=None,
+                                          **kw)
+    within = r0 - mask.float()  # candidates within the radius
+    r_cap = (max_nn - 1) if max_nn is not None and max_nn - 1 < 2 * w else 0
+    free = within < r_cap if r_cap else torch.ones_like(mask)
+    for a, b in ((s0, r0), (s1, r1), (s2, r2)):
+        assert torch.equal(a[free], b[free])
+    assert int(free.sum()) > 1000
+    if radius > 300.0:  # the cap binds elsewhere, and changes the moments
+        assert int((~free).sum()) > 1000
+        assert not torch.equal(s0[~free], r0[~free])
+
+
 def test_knn_normals_window_stats_matches_jax(sorted_cloud):
     spos, smask = sorted_cloud
     jdk, jn, jc = jax_stats(jnp.asarray(spos), jnp.asarray(smask), k=15,

@@ -4,7 +4,7 @@
 Run on a machine with an NVIDIA card:
 
     python3 tools/ab_kernels.py [--repo DIR] [--label NAME]
-        [--kernels compact_sweep,payload_moment_sums] [--reps 50]
+        [--kernels compact_sweep,payload_moment_sums | main] [--reps 50]
 
 Imports ``buildingsegment_tpu_torch`` from DIR (default: this
 repository's root; an older commit unpacked with ``git archive`` works
@@ -13,7 +13,8 @@ on chip_smoke.py's slice scene (222,828 points) under ``DEFAULT_CONFIG``
 and under ``seg_group=1``, and on BASELINE config 5's scan 0 (the house
 at 25 mm spacing, seed 0, 1,082,304 points) at capacity 1,179,648.
 Each run captures the inputs of every call of the chosen kernels'
-wrappers (spied where the solvers call them, as chip_smoke.py does);
+wrappers (any of ``SPIES``; ``main``: the default path's eight), spied
+where the solvers call them, as chip_smoke.py does;
 each kernel is then timed on the first call at its largest row count
 with CUDA events (one warm-up call, then ``--reps`` calls back to back:
 ``ms``, which includes the wrapper's host time wherever that exceeds the
@@ -45,7 +46,14 @@ SPIES = {
                             "payload_moment_sums_cuda", 0),
     "label_sweep": ("seg.region_grow", "label_sweep", "label_sweep_cuda", 4),
     "plane_adopt": ("seg.coarse", "plane_adopt", "plane_adopt_cuda", 1),
+    "stats_sweep": ("ops.stats_sweep", "stats_sweep", "stats_sweep_cuda", 1),
+    "seed_sweep": ("seg.region_grow", "seed_sweep", "seed_sweep_cuda", 2),
+    "refine_sweep": ("seg.coarse", "refine_sweep", "refine_sweep_cuda", 2),
+    "table_lookup": ("seg.coarse", "table_lookup", "table_lookup_cuda", 0),
 }
+#: ``--kernels main``: every kernel of the default path
+MAIN = ("stats_sweep", "seed_sweep", "label_sweep", "compact_sweep",
+        "refine_sweep", "payload_moment_sums", "table_lookup", "plane_adopt")
 
 
 def clone(torch, x):
@@ -64,7 +72,7 @@ def main():
     ap.add_argument("--kernels", default="compact_sweep,payload_moment_sums")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
-    names = args.kernels.split(",")
+    names = list(MAIN) if args.kernels == "main" else args.kernels.split(",")
     sys.path.insert(0, os.path.abspath(args.repo))
 
     import importlib
