@@ -1,4 +1,5 @@
-// Shared pieces of the window sweeps (label_sweep.cu, compact_sweep.cu).
+// Shared pieces of the window sweeps (label_sweep.cu, compact_sweep.cu,
+// seed_sweep.cu, refine_sweep.cu).
 //
 // The per-candidate hop/merge test of the window solver, written in the
 // operation order of buildingsegment_tpu/ops/window_sweep.py
@@ -9,6 +10,27 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+
+// Dynamic shared memory one block may take on the H100 (227 KB).
+constexpr int kSmemBudget = 232448;
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` where a launch
+// needs more than the 48 KB default and more than `limit`, the largest
+// size already set for it: once per process and size, not per launch.
+template <typename Kernel>
+inline cudaError_t raise_smem_limit(Kernel kernel, int bytes,
+                                    std::atomic<int>& limit) {
+  if (bytes <= 48 * 1024 || bytes <= limit.load()) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  int cur = limit.load();
+  while (cur < bytes && !limit.compare_exchange_weak(cur, bytes)) {
+  }
+  return cudaSuccess;
+}
 
 struct WindowParams {
   float th;     // plane band |(p - c)·n| <= th

@@ -371,9 +371,24 @@ def stats_sweep_cuda(pos, mask, *, k, w, radius, max_nn):
     return out[0], out[1], out[2:5].T, out[5:11].T
 
 
+#: rows a block of the seed sweep's tile owns, and the widest window the
+#: tile takes (kSeedRows, kSeedTileMaxW in csrc/seed_sweep.cu); a wider
+#: window takes its per-row kernel
+SEED_TILE_ROWS = 512
+SEED_TILE_MAX_W = 3072
+#: rows a block of the refinement sweep's tile owns, and the widest window
+#: the tile takes (kRefineRows, kRefineTileMaxW in csrc/refine_sweep.cu);
+#: a wider window takes its per-row kernel
+REFINE_TILE_ROWS = 256
+REFINE_TILE_MAX_W = 3072
+#: lanes that search one hole row's candidates (kRefineGroup)
+REFINE_TILE_GROUP = 8
+
+
 def seed_sweep_cuda(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
                     signed=False):
-    """CUDA seed sweep (csrc/seed_sweep.cu); see
+    """CUDA seed sweep (csrc/seed_sweep.cu): unordered pairs from a
+    shared-memory tile, or one thread a row above ``SEED_TILE_MAX_W``; see
     :func:`buildingsegment_tpu_torch.ops.window_sweep.seed_sweep`."""
     n = mask.shape[0]
     comps = [_f32(t, n, name) for group, name in ((pos, "pos"), (nrm, "nrm"))
@@ -437,7 +452,9 @@ def seed_mxu_cuda(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
 def refine_sweep_cuda(pos, nrm, mask, pid, table, n_live, *, w, th_thickness,
                       th_normal_cos, edge_gate2, signed=False, clean=False,
                       adopt=True):
-    """CUDA refinement sweep (csrc/refine_sweep.cu); see
+    """CUDA refinement sweep (csrc/refine_sweep.cu): a staged tile with
+    eight lanes for each hole row, or one thread a row above
+    ``REFINE_TILE_MAX_W``; see
     :func:`buildingsegment_tpu_torch.ops.window_sweep.refine_sweep`."""
     n = mask.shape[0]
     comps = [_f32(t, n, name) for group, name in ((pos, "pos"), (nrm, "nrm"))

@@ -84,9 +84,10 @@ Phases, in order; the first failure exits non-zero:
    no path calls, is held bit for bit against its plain version on the
    ids and live bounds of the default path's ``table_lookup`` calls
    (slice scene and capacity 1,179,648) with a seeded f32[cap, 3] table,
-   and timed at the largest.  #2 and #11, the stage-then-fold kernels,
-   are reported at both sizes: the slice scene's default path and
-   config 5's scan 0 (#11 at 1,179,648 rows);
+   and timed at the largest.  The redesigned kernels (#2, #3, #4, #6,
+   #11 and #13) are reported at both sizes: the slice scene's default
+   path and config 5's scan 0 (#3, #4, #6, #11 and #13 at 1,179,648
+   rows); #6's line names its hole rows;
 11. the ``mxu`` path at full size: config 5's scan 0 (1,082,304 points,
    capacity 1,179,648) through ``segment_file``: every #15 and #16 call
    held bit for bit; #15 and #3 timed on the same captured stats input,
@@ -291,7 +292,11 @@ def work(torch, name, args, kw, out):
         # every candidate once); per neighbour used: the moments (19)
         ops = pairs * (8 + 1 + 2) + used * 19
     elif name == "seed_sweep":
-        ops = window_pairs(torch, args[2], kw["w"]) * 22
+        # by unordered pairs (the tests are symmetric up to the ball and
+        # the normal): d² (8) and the cos with its compare (6) once a
+        # pair; each direction's ball compare (1) and plane band (6)
+        ordered = window_pairs(torch, args[2], kw["w"])
+        ops = ordered // 2 * (8 + 6) + ordered * (1 + 6)
     elif name in ("label_sweep", "compact_sweep"):
         mask = args[5] if name == "label_sweep" else args[3]
         ops = window_pairs(torch, mask, kw["w"]) * 40
@@ -299,8 +304,12 @@ def work(torch, name, args, kw, out):
             ops += args[6] * args[6] * 40 + mask.shape[0] * 16
     elif name == "refine_sweep":
         pid_in, mask = args[3], args[2]
-        adopting = int(((pid_in == 0) & mask).sum())
+        # hole rows: valid, no kept plane (none, or dropped by `clean`:
+        # a row its own plane rejects cannot adopt that plane again)
+        holes = mask & ((pid_in <= 0) | (out != pid_in))
+        adopting = int(holes.sum()) if kw.get("adopt", True) else 0
         ops = int(mask.sum()) * 12 + adopting * 2 * kw["w"] * 30
+        note = f"; {adopting} hole rows of {mask.shape[0]}"
     elif name == "payload_moment_sums":
         ids, payload = args[0], args[1]
         live_bound = -(-args[3] // 128) * 128  # the kernel's live-id bound
@@ -1110,14 +1119,15 @@ def main():
     # 11. the mxu path at full size
     mxu_full = mxu_full_phase(torch, np, hooks, cuda_fns, card, labels0)
 
-    # the redesigned kernels (stage-then-fold sums, #3's selection) at both
-    # sizes
+    # the redesigned kernels (stage-then-fold sums, #3's selection, the
+    # tiled window gates of #4 and #6) at both sizes
     fold = {name: {where: {k: results[(path, name)][k]
                            for k in ("rows", "ms", "plain_ms", "bound_ms")}
                    for where, path in (("slice_default", "default"),
                                        ("config5_scan0", "render"))}
             for name in ("compact_sweep", "payload_moment_sums",
-                         "stats_sweep", "plane_adopt")}
+                         "stats_sweep", "plane_adopt", "seed_sweep",
+                         "refine_sweep")}
     for name, rec in fold.items():
         print(f"{name}: " + ", ".join(
             f"{where} {r['rows']} rows {r['ms']:.4f} ms (bound "

@@ -273,6 +273,40 @@ def test_seed_sweep_kernel_matches_plain(scene, signed):
     assert torch.equal(got, ref)
 
 
+def _cut_scene(scene):
+    """The scene cut to 16,284 rows (not a multiple of either tile of #4
+    and #6) with a masked run across the tile edge at row 4,096."""
+    pos, nrm, mask = scene
+    n = 16284
+    mask = mask[:n].clone()
+    mask[4096 - 40:4096 + 30] = False
+    return pos[:n].contiguous(), nrm[:n].contiguous(), mask
+
+
+@pytest.mark.parametrize("case,w", [
+    ("scene", 1), ("scene", 48), ("cut", 48), ("sparse", 48),
+    ("scene", kernels.SEED_TILE_MAX_W + 1),
+])
+def test_seed_sweep_kernel_windows(scene, case, w):
+    """#4 against its plain version, bit for bit, at the path's w = 48,
+    at w = 1, past the tile's widest window (the per-row kernel), on a
+    row count that is not a multiple of the tile and on the sparse
+    cloud."""
+    if case == "sparse":
+        pos, nrm, mask, dk = _sparse_cloud(scene[0].device)
+    else:
+        pos, nrm, mask = _cut_scene(scene) if case == "cut" else scene
+        dk = stats_sweep_reference(_cols(pos), mask, k=15, w=48,
+                                   radius=100.0, max_nn=50)[0]
+    kw = dict(w=w, th_thickness=TH, th_normal_cos=CTH)
+    before = kernels.launch_counts["seed_sweep"]
+    got = kernels.seed_sweep_cuda(_cols(pos), _cols(nrm), mask, dk, **kw)
+    assert kernels.launch_counts["seed_sweep"] == before + 1
+    ref = seed_sweep_reference(_cols(pos), _cols(nrm), mask, dk, **kw)
+    assert got.sum() > 30 and (mask & ~got).sum() > 30
+    assert torch.equal(got, ref)
+
+
 def _sparse_cloud(cuda):
     """A cloud at building span (unsorted), 7,000 rows (not a multiple of
     the 128-row blocks), 30% valid, rows 1,024–1,919 (seven whole blocks)
@@ -359,15 +393,15 @@ def test_table_lookup_cols_kernel_matches_plain(cuda, cols):
     assert not torch.signbit(got[:, ids.to(cuda) == 5]).any()
 
 
-def _plane_problem(pos, nrm, mask, seed):
-    """Plane ids by row blocks (some dropped) and their fitted table."""
+def _plane_problem(pos, nrm, mask, seed, *, run=300, top=9, p=64):
+    """Plane ids by row blocks of ``run`` rows, ids 1..``top`` (some
+    dropped), and their fitted table: row id − 1 for ids 1..p − 1."""
     n = mask.shape[0]
     g = torch.Generator(device="cpu").manual_seed(seed)
     rows = torch.arange(n, device=pos.device)
-    pid = (rows // 300 % 9 + 1).to(torch.int32)
+    pid = (rows // run % top + 1).to(torch.int32)
     drop = torch.rand(n, generator=g).to(pos.device) < 0.3
     pid = torch.where(drop | ~mask, 0, pid).to(torch.int32)
-    p = 64
     cnt = torch.zeros(p, device=pos.device).index_add_(
         0, pid.long(), torch.ones(n, device=pos.device))
     sn = torch.zeros((p, 3), device=pos.device).index_add_(
@@ -392,6 +426,67 @@ def test_refine_sweep_kernel_matches_plain(scene, clean):
     ref = refine_sweep_reference(*args, **kw)
     assert (got != pid).sum() > 100
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("case", [
+    "w48", "w1", "cut", "tiles", "ntab0", "ntab4096", "ntab4224", "wide_w",
+    "sparse",
+])
+def test_refine_sweep_kernel_cases(scene, case):
+    """#6 against its plain version, bit for bit: at w = 48 and w = 1 (the
+    path's w = 16 is the test above); on a row count that is not a
+    multiple of the tile; a tile with no hole row beside one with only
+    hole rows; an empty live table (ntab = 0), a full 4,096-row one (64
+    KB) and one above it; past the tile's widest window (the per-row
+    kernel, its 4,096-row table in 64 KB of shared memory); the sparse
+    cloud with wide gates."""
+    w, clean, n_live = 48, True, 9
+    th, cth, eg2 = TH, CTH, EDGE ** 2
+    if case == "sparse":
+        pos, nrm, mask, _dk = _sparse_cloud(scene[0].device)
+        th, cth, eg2 = 2000.0, 0.3, 2500.0 ** 2
+    elif case == "cut":
+        pos, nrm, mask = _cut_scene(scene)
+    else:
+        pos, nrm, mask = scene
+    prob = {}
+    if case in ("ntab4096", "ntab4224", "wide_w"):
+        rows = 4224 if case == "ntab4224" else 4096
+        prob = dict(run=4, top=rows, p=rows + 1)  # table rows: ids 1..p-1
+        n_live = rows
+    pid, table, _ = _plane_problem(pos, nrm, mask, 7, **prob)
+    if case == "w1":
+        w = 1
+    elif case == "wide_w":
+        w = kernels.REFINE_TILE_MAX_W + 1
+    elif case == "ntab0":  # no live table: rows keep their ids, none adopts
+        n_live, clean = 0, False
+    elif case == "tiles":
+        # tile 24 keeps every row's id (none dropped), tile 25 is all holes
+        rows = kernels.REFINE_TILE_ROWS
+        full, holes = slice(24 * rows, 25 * rows), slice(25 * rows, 26 * rows)
+        assert mask[full].all() and mask[holes].all()
+        pid = pid.clone()
+        pid[full] = (torch.arange(24 * rows, 25 * rows, device=pid.device)
+                     // 300 % 9 + 1).to(torch.int32)
+        pid[holes] = 0
+        clean = False
+    kw = dict(w=w, th_thickness=th, th_normal_cos=cth, edge_gate2=eg2,
+              clean=clean, adopt=True)
+    args = (_cols(pos), _cols(nrm), mask, pid, table, n_live)
+    before = kernels.launch_counts["refine_sweep"]
+    got = kernels.refine_sweep_cuda(*args, **kw)
+    assert kernels.launch_counts["refine_sweep"] == before + 1
+    ref = refine_sweep_reference(*args, **kw)
+    assert torch.equal(got, ref)
+    adopted = ((pid == 0) & mask & (ref > 0)).sum()
+    if case == "ntab0":
+        assert adopted == 0 and torch.equal(got, torch.where(mask, pid, 0))
+    elif case != "w1":
+        assert adopted > 20
+    if case == "tiles":
+        rows = kernels.REFINE_TILE_ROWS
+        assert torch.equal(got[full], pid[full]) and (got[holes] > 0).any()
 
 
 def test_payload_moment_sums_kernel_matches_plain(scene):

@@ -4,27 +4,37 @@
 Run on a machine with an NVIDIA card:
 
     python3 tools/ab_kernels.py [--repo DIR] [--label NAME]
-        [--kernels compact_sweep,payload_moment_sums | main] [--reps 50]
+        [--kernels compact_sweep,payload_moment_sums | main | off | all]
+        [--reps 50] [--host-split]
 
 Imports ``buildingsegment_tpu_torch`` from DIR (default: this
 repository's root; an older commit unpacked with ``git archive`` works
-the same), builds its kernels, and runs ``segment_cloud`` three times:
-on chip_smoke.py's slice scene (222,828 points) under ``DEFAULT_CONFIG``
-and under ``seg_group=1``, and on BASELINE config 5's scan 0 (the house
-at 25 mm spacing, seed 0, 1,082,304 points) at capacity 1,179,648.
+the same), builds its kernels, and runs ``segment_cloud`` on the scenes
+the chosen kernels need (``RUNS``): chip_smoke.py's slice scene (222,828
+points) under ``DEFAULT_CONFIG``, under ``seg_group=1``, under
+``knn_method="pallas"`` and under the ``mxu`` fields, and BASELINE config
+5's scan 0 (the house at 25 mm spacing, seed 0, 1,082,304 points) at
+capacity 1,179,648 under ``DEFAULT_CONFIG`` (then rendered, as the
+multi-scan writer does) and under the ``mxu`` fields.
 Each run captures the inputs of every call of the chosen kernels'
-wrappers (any of ``SPIES``; ``main``: the default path's eight), spied
-where the solvers call them, as chip_smoke.py does;
+wrappers (any of ``SPIES``; ``main``: the default path's eight; ``off``:
+#8, #14, #15 and #16, off the main path; ``all``: both), spied where the
+solvers call them, as chip_smoke.py does;
 each kernel is then timed on the first call at its largest row count
 with CUDA events (one warm-up call, then ``--reps`` calls back to back:
 ``ms``, which includes the wrapper's host time wherever that exceeds the
 device's; ``host_ms``, the host's time to issue a call), then the same
 calls again under ``torch.profiler``: the
 device time of each CUDA kernel the wrapper launched, per call
-(``device_ms``, its sum ``device_ms_total``).  Prints the card line,
-then one JSON line.  To compare two commits on one
-card, run it in turns from one command: parent, change, change, parent.
-Exits non-zero without a card.
+(``device_ms``, its sum ``device_ms_total``).  ``launch_floor_ms`` is
+the profiled device time of a near-empty kernel (a one-element
+``add_``), the floor under every launch.  ``--host-split`` also times,
+on the host, the parts of the ``seed_sweep`` and ``refine_sweep``
+wrappers on their largest call: the checks and ``.contiguous()``, the
+allocation, ``_stream`` and the ctypes call.  Prints the card line, then
+one JSON line.  To compare two commits on one card, run it in turns from
+one command: parent, change, change, parent.  Exits non-zero without a
+card.
 """
 
 import argparse
@@ -33,27 +43,49 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HOUSE = dict(width_mm=12000.0, depth_mm=9000.0, wall_h_mm=6000.0,
              ridge_h_mm=8000.0, noise_mm=8.0)
+# the window runs of the default path's kernels
+WINDOW_RUNS = ("slice_default", "slice_single_level", "config5_scan0")
 # kernel → (module under the package, attribute the solver calls, wrapper
-# in kernels.py, the argument whose length is the call's row count)
+# in kernels.py, the argument whose length is the call's row count, the
+# runs that reach it)
 SPIES = {
     "compact_sweep": ("seg.region_grow", "compact_sweep",
-                      "compact_sweep_cuda", 4),
+                      "compact_sweep_cuda", 4, WINDOW_RUNS),
     "payload_moment_sums": ("seg.coarse", "plane_payload_moment_sums",
-                            "payload_moment_sums_cuda", 0),
-    "label_sweep": ("seg.region_grow", "label_sweep", "label_sweep_cuda", 4),
-    "plane_adopt": ("seg.coarse", "plane_adopt", "plane_adopt_cuda", 1),
-    "stats_sweep": ("ops.stats_sweep", "stats_sweep", "stats_sweep_cuda", 1),
-    "seed_sweep": ("seg.region_grow", "seed_sweep", "seed_sweep_cuda", 2),
-    "refine_sweep": ("seg.coarse", "refine_sweep", "refine_sweep_cuda", 2),
-    "table_lookup": ("seg.coarse", "table_lookup", "table_lookup_cuda", 0),
+                            "payload_moment_sums_cuda", 0, WINDOW_RUNS),
+    "label_sweep": ("seg.region_grow", "label_sweep", "label_sweep_cuda", 4,
+                    WINDOW_RUNS),
+    "plane_adopt": ("seg.coarse", "plane_adopt", "plane_adopt_cuda", 1,
+                    WINDOW_RUNS),
+    "stats_sweep": ("ops.stats_sweep", "stats_sweep", "stats_sweep_cuda", 1,
+                    WINDOW_RUNS),
+    "seed_sweep": ("seg.region_grow", "seed_sweep", "seed_sweep_cuda", 2,
+                   WINDOW_RUNS),
+    "refine_sweep": ("seg.coarse", "refine_sweep", "refine_sweep_cuda", 2,
+                     WINDOW_RUNS),
+    "table_lookup": ("seg.coarse", "table_lookup", "table_lookup_cuda", 0,
+                     WINDOW_RUNS),
+    "plane_sums": ("raster.ortho", "plane_sums", "plane_sums_cuda", 0,
+                   ("config5_scan0",)),
+    "knn_exact": ("ops.pallas_knn", "knn_exact", "knn_exact_cuda", 1,
+                  ("slice_pallas",)),
+    "stats_mxu": ("ops.stats_sweep", "stats_mxu", "stats_mxu_cuda", 1,
+                  ("slice_mxu", "config5_scan0_mxu")),
+    "seed_mxu": ("seg.region_grow", "seed_sweep_mxu", "seed_mxu_cuda", 2,
+                 ("slice_mxu", "config5_scan0_mxu")),
 }
 #: ``--kernels main``: every kernel of the default path
 MAIN = ("stats_sweep", "seed_sweep", "label_sweep", "compact_sweep",
         "refine_sweep", "payload_moment_sums", "table_lookup", "plane_adopt")
+#: ``--kernels off``: the kernels off the main path that a path launches
+OFF = ("plane_sums", "knn_exact", "stats_mxu", "seed_mxu")
+#: the wrappers ``--host-split`` takes apart
+SPLIT = ("seed_sweep", "refine_sweep")
 
 
 def clone(torch, x):
@@ -64,6 +96,113 @@ def clone(torch, x):
     return x
 
 
+def per_call_ms(torch, fn, reps):
+    """Host ms per call of ``fn`` over ``reps`` calls, then synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def host_split(torch, kernels, name, a, kw, reps):
+    """Host ms per call of each part of the ``seed_sweep`` or
+    ``refine_sweep`` wrapper, step by step as kernels.py takes it, and of
+    the whole wrapper."""
+    lib = kernels._load()
+    if name == "seed_sweep":
+        pos, nrm, mask, dk = a
+        n = mask.shape[0]
+
+        def checks():
+            comps = [kernels._f32(t, n, nm)
+                     for group, nm in ((pos, "pos"), (nrm, "nrm"))
+                     for t in group]
+            return comps, kernels._f32(dk, n, "dk"), kernels._mask_bytes(mask, n)
+
+        comps, dkc, mask_u8 = checks()
+
+        def alloc():
+            return torch.empty(n, dtype=torch.bool, device=mask.device)
+
+        out = alloc()
+
+        def call():
+            return lib.bst_seed_sweep(
+                *[t.data_ptr() for t in comps], mask_u8.data_ptr(),
+                dkc.data_ptr(), out.data_ptr(), n, kw["w"],
+                kw["th_thickness"], kw["th_normal_cos"],
+                int(kw.get("signed", False)), kernels._stream(out))
+        whole = kernels.seed_sweep_cuda
+    else:
+        pos, nrm, mask, pid, table, n_live = a
+        n = mask.shape[0]
+
+        def checks():
+            comps = [kernels._f32(t, n, nm)
+                     for group, nm in ((pos, "pos"), (nrm, "nrm"))
+                     for t in group]
+            p = kernels._cuda_tensor(pid, torch.int32, (n,), "pid")
+            tab = kernels._cuda_tensor(table, torch.float32,
+                                       (table.shape[0], 4), "table")
+            if tab.data_ptr() % 16:
+                tab = tab.clone()
+            return comps, p, tab, kernels._mask_bytes(mask, n)
+
+        comps, pidc, tab, mask_u8 = checks()
+        ntab = min(kernels.ceil128(n_live), table.shape[0])
+
+        def alloc():
+            return torch.empty_like(pidc)
+
+        out = alloc()
+
+        def call():
+            return lib.bst_refine_sweep(
+                *[t.data_ptr() for t in comps], mask_u8.data_ptr(),
+                pidc.data_ptr(), tab.data_ptr(), ntab, out.data_ptr(), n,
+                kw["w"], kw["th_thickness"], kw["th_normal_cos"],
+                kw["edge_gate2"], int(kw.get("signed", False)),
+                int(kw.get("clean", False)), int(kw.get("adopt", True)),
+                kernels._stream(out))
+        whole = kernels.refine_sweep_cuda
+    parts = {
+        "checks_contiguous": checks, "allocation": alloc,
+        "stream": lambda: kernels._stream(out), "ctypes_call": call,
+        "whole_wrapper": lambda: whole(*a, **kw),
+    }
+    return {part: per_call_ms(torch, fn, reps) for part, fn in parts.items()}
+
+
+def device_ms(torch, profile, activities, fn, a, kw, reps):
+    """The profiler's device ms per call of ``fn(*a, **kw)`` by CUDA
+    kernel, over ``reps`` calls."""
+    with profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn(*a, **kw)
+        torch.cuda.synchronize()
+    dev = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and "CUDA" in str(e.device_type):
+            key = e.key.replace("(anonymous namespace)::", "")[:60]
+            dev[key] = dev.get(key, 0.0) + us / 1e3 / reps
+    return dev
+
+
+def launch_floor_ms(torch, profile, activities, reps):
+    """Profiled device ms of a one-element ``add_``: a near-empty kernel."""
+    x = torch.zeros(1, device="cuda")
+    x.add_(1)
+    torch.cuda.synchronize()
+    return sum(device_ms(torch, profile, activities, x.add_, (1,), {},
+                         reps).values())
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -71,8 +210,11 @@ def main():
     ap.add_argument("--label", default="")
     ap.add_argument("--kernels", default="compact_sweep,payload_moment_sums")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--host-split", action="store_true")
     args = ap.parse_args()
-    names = list(MAIN) if args.kernels == "main" else args.kernels.split(",")
+    names = {"main": list(MAIN), "off": list(OFF),
+             "all": list(MAIN + OFF)}.get(args.kernels)
+    names = names or args.kernels.split(",")
     sys.path.insert(0, os.path.abspath(args.repo))
 
     import importlib
@@ -94,23 +236,39 @@ def main():
         DEFAULT_CONFIG, HostPointCloud, PipelineConfig, _bucket_capacity,
         segment_cloud,
     )
+    from buildingsegment_tpu_torch.raster import ortho
     from buildingsegment_tpu_torch.utils import make_building_cloud
 
     pkg = os.path.dirname(os.path.abspath(kernels.__file__))
     build_s = kernels.build()
     slice_pts, _ = make_building_cloud(seed=0, spacing_mm=55.0, **HOUSE)
     scan0, _ = make_building_cloud(seed=0, spacing_mm=25.0, **HOUSE)
+    scan0_cfg = dataclasses.replace(
+        DEFAULT_CONFIG,
+        pad_to_multiple=_bucket_capacity(len(scan0), DEFAULT_CONFIG))
+    mxu = dict(stats_rank_mode="mxu", seg_seed_mode="mxu")
+    # run → (points, configuration, render the result)
     runs = {
-        "slice_default": (slice_pts, DEFAULT_CONFIG),
+        "slice_default": (slice_pts, DEFAULT_CONFIG, False),
         "slice_single_level": (slice_pts, PipelineConfig(
-            knn_method="window", seg_group=1, pad_to_multiple=2048)),
-        "config5_scan0": (scan0, dataclasses.replace(
-            DEFAULT_CONFIG,
-            pad_to_multiple=_bucket_capacity(len(scan0), DEFAULT_CONFIG))),
+            knn_method="window", seg_group=1, pad_to_multiple=2048), False),
+        "config5_scan0": (scan0, scan0_cfg, "plane_sums" in names),
+        "slice_pallas": (slice_pts, PipelineConfig(knn_method="pallas"),
+                         False),
+        "slice_mxu": (slice_pts, PipelineConfig(**mxu), False),
+        "config5_scan0_mxu": (scan0, dataclasses.replace(scan0_cfg, **mxu),
+                              False),
     }
+    wanted = {run for name in names for run in SPIES[name][4]}
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {"card": card, "label": args.label, "package": pkg,
-           "build_s": build_s, "reps": args.reps, "runs": {}}
-    for run, (pts, cfg) in runs.items():
+           "build_s": build_s, "reps": args.reps,
+           "launch_floor_ms": launch_floor_ms(torch, profile, activities,
+                                              args.reps),
+           "runs": {}}
+    for run, (pts, cfg, render) in runs.items():
+        if run not in wanted:
+            continue
         seen = {name: [] for name in names}
         orig = {}
         for name in names:
@@ -125,6 +283,9 @@ def main():
         try:
             res = segment_cloud(HostPointCloud(positions=pts), cfg,
                                 device="cuda")
+            if render:
+                with tempfile.TemporaryDirectory() as tmp:
+                    ortho.render_ortho_views(res, tmp, cfg)
         finally:
             for name in names:
                 mod, fn = orig[name]
@@ -149,24 +310,20 @@ def main():
             host = time.perf_counter() - t0
             end.record()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(args.reps):
-                    fn(*a, **kw)
-                torch.cuda.synchronize()
-            dev = {}
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = e.self_cuda_time_total
-                if us > 0 and "CUDA" in str(e.device_type):
-                    key = e.key.replace("(anonymous namespace)::", "")[:60]
-                    dev[key] = dev.get(key, 0.0) + us / 1e3 / args.reps
+            dev = device_ms(torch, profile, activities, fn, a, kw, args.reps)
             rec[name] = {"calls": len(calls), "rows": max(rows),
                          "ms": start.elapsed_time(end) / args.reps,
                          "host_ms": host * 1e3 / args.reps,
                          "device_ms_total": sum(dev.values()),
                          "device_ms": dev}
+            # the card time of the first call at each smaller row count
+            rec[name]["device_ms_total_by_rows"] = {
+                r: sum(device_ms(torch, profile, activities, fn,
+                                 *calls[rows.index(r)], args.reps).values())
+                for r in sorted(set(rows)) if r != max(rows)}
+            if args.host_split and name in SPLIT:
+                rec[name]["host_split_ms"] = host_split(
+                    torch, kernels, name, a, kw, 4 * args.reps)
         out["runs"][run] = rec
         del seen
     print(json.dumps(out))
