@@ -176,7 +176,7 @@ def _bind() -> None:
     lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P]
     lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
     lib.bst_adopt.argtypes = [_P] * 10 + [_I, _F, _F, _I, _P]
-    lib.bst_knn_exact.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.bst_knn_exact.argtypes = [_P] * 11 + [_I] * 5 + [_P]
     lib.bst_plane_sums.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
     lib.bst_stats_mxu.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
     lib.bst_seed_mxu.argtypes = [_P] * 9 + [_I, _I, _F, _F, _I, _P]
@@ -215,11 +215,21 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+#: rows a block of the label sweep's tile owns, the lanes that share a
+#: row, and the widest window the tile takes (kLabelRows, kLabelLanes,
+#: kLabelTileMaxW in csrc/label_sweep.cu); a wider window takes its
+#: one-thread-a-row kernel
+LABEL_TILE_ROWS = 64
+LABEL_TILE_LANES = 4
+LABEL_TILE_MAX_W = 2048
+
+
 def label_sweep_cuda(
     pos, nrm, model_n, model_c, label, mask, *, w, th_thickness,
     th_normal_cos, edge_gate2, inf_label, signed=False,
 ):
-    """CUDA ``label_sweep`` (csrc/label_sweep.cu); see
+    """CUDA ``label_sweep`` (csrc/label_sweep.cu): a staged tile with four
+    lanes a row, or one thread a row above ``LABEL_TILE_MAX_W``; see
     :func:`buildingsegment_tpu_torch.ops.window_sweep.label_sweep`."""
     n = label.shape[0]
     if label.dtype != torch.int32 or not label.is_cuda:
@@ -619,11 +629,21 @@ def plane_adopt_cuda(payload, holes, table, rows, *, th_thickness, th_cos,
 #: largest query and candidate tiles of csrc/knn_exact.cu
 KNN_MAX_QT = 128
 KNN_MAX_CT = 1024
+#: the warp design of csrc/knn_exact.cu (kTileQueries, kChunk,
+#: kTileMaxKk): a one-warp block owns 64 queries of a query tile and
+#: streams the candidates in chunks of 256; it keeps lists of at most 64
+#: entries (k ≤ 65) and takes query tiles of a multiple of 64 rows and
+#: candidate tiles of a multiple of 32; other shapes take the first
+#: design's kernel, one thread a query, which computes the same function
+KNN_TILE_QUERIES = 64
+KNN_CHUNK = 256
+KNN_TILE_MAX_KK = 64
 
 
 def knn_exact_cuda(pos, seed_d, seed_i, visit, visit_d2, counts, *, qt, ct,
                    w_excl):
-    """CUDA exact kNN scan (csrc/knn_exact.cu); see
+    """CUDA exact kNN scan (csrc/knn_exact.cu): the warp design up to
+    ``KNN_TILE_MAX_KK`` list entries, else the first design's kernel; see
     :func:`buildingsegment_tpu_torch.ops.pallas_knn.knn_exact`."""
     n, kk = seed_d.shape
     if not (0 < qt <= KNN_MAX_QT and 0 < ct <= KNN_MAX_CT and n % qt == 0
@@ -639,12 +659,14 @@ def knn_exact_cuda(pos, seed_d, seed_i, visit, visit_d2, counts, *, qt, ct,
     counts = _cuda_tensor(counts, torch.int32, (n // qt,), "counts")
     out_d = torch.empty_like(seed_d)
     out_i = torch.empty_like(seed_i)
+    # the warp design's float4 positions (invalid rows NaN)
+    packed = torch.empty((n, 4), dtype=torch.float32, device=out_d.device)
     lib = _load()
     err = lib.bst_knn_exact(
         *[t.data_ptr() for t in comps], seed_d.data_ptr(), seed_i.data_ptr(),
         visit.data_ptr(), visit_d2.data_ptr(), counts.data_ptr(),
-        out_d.data_ptr(), out_i.data_ptr(), n, kk, qt, ct, int(w_excl),
-        _stream(out_d),
+        out_d.data_ptr(), out_i.data_ptr(), packed.data_ptr(), n, kk, qt,
+        ct, int(w_excl), _stream(out_d),
     )
     _check(lib, err, "knn_exact")
     launch_counts["knn_exact"] += 1

@@ -54,9 +54,10 @@ Phases, in order; the first failure exits non-zero:
    runs of stage times;
 8. the BASELINE config-2 shape: ``knn_pallas(k=16)`` on the house at
    25.4 mm spacing (1,046,391 points, capacity 1,046,528), Morton-sorted;
-   the whole call and the kernel are timed, and 32 sampled query tiles
-   are held bit for bit against the plain version computed for those
-   queries only (the whole plain run is O(N²));
+   the whole call and the kernel are timed, the kernel beside its bound
+   and its tile count (listed, under the final tau, pairs a query), and
+   32 sampled query tiles are held bit for bit against the plain version
+   computed for those queries only (the whole plain run is O(N²));
 9. the CLI as a subprocess: ``-a=scene.ply -s=out.ply --knn-method
    pallas --json-summary`` must exit 0 with the plane count of step 6;
    ``--render-dir R --extract-contours`` on the same scene must write the
@@ -84,10 +85,11 @@ Phases, in order; the first failure exits non-zero:
    no path calls, is held bit for bit against its plain version on the
    ids and live bounds of the default path's ``table_lookup`` calls
    (slice scene and capacity 1,179,648) with a seeded f32[cap, 3] table,
-   and timed at the largest.  The redesigned kernels (#2, #3, #4, #6,
-   #11 and #13) are reported at both sizes: the slice scene's default
+   and timed at the largest.  The redesigned kernels (#1, #2, #3, #4,
+   #6, #11 and #13) are reported at both sizes: the slice scene's default
    path and config 5's scan 0 (#3, #4, #6, #11 and #13 at 1,179,648
-   rows); #6's line names its hole rows;
+   rows; #1 also on the single-level path); #6's line names its hole
+   rows; #14 is reported on the pallas path and at the config-2 shape;
 11. the ``mxu`` path at full size: config 5's scan 0 (1,082,304 points,
    capacity 1,179,648) through ``segment_file``: every #15 and #16 call
    held bit for bit; #15 and #3 timed on the same captured stats input,
@@ -1092,16 +1094,24 @@ def main():
     if not (torch.equal(got_d[rows], ref_d) and torch.equal(got_i[rows],
                                                              ref_i)):
         fail("config-2 shape: kernel != plain version on the sampled tiles")
+    moved, ops, note = work(torch, "knn_exact", args, kw, (got_d, got_i))
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
     config2 = {
         "points": len(cpts), "rows": spos.shape[0], "k": 16,
         "knn_pallas_ms": knn_ms, "kernel_ms": kernel_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "tiles": note.lstrip("; "),
         "mpts_per_s": len(cpts) / knn_ms / 1e3,
         "sampled_rows_equal": int(rows.shape[0]), "card": card,
     }
     print(f"config-2 shape: knn_pallas(k=16) on {len(cpts)} points "
           f"({spos.shape[0]} rows): {knn_ms:.2f} ms a call "
-          f"({config2['mpts_per_s']:.3f} Mpts/s), kernel {kernel_ms:.2f} ms; "
-          f"32 sampled query tiles == plain ({card})")
+          f"({config2['mpts_per_s']:.3f} Mpts/s), kernel {kernel_ms:.2f} ms, "
+          f"bound {config2['bound_ms']:.6f} ms by {config2['bound_by']} "
+          f"({moved} B, {ops} ops{note}); 32 sampled query tiles == plain "
+          f"({card})")
 
     del batch, shifted, order, spos, smask, calls8, args, got_d, got_i
 
@@ -1120,14 +1130,24 @@ def main():
     mxu_full = mxu_full_phase(torch, np, hooks, cuda_fns, card, labels0)
 
     # the redesigned kernels (stage-then-fold sums, #3's selection, the
-    # tiled window gates of #4 and #6) at both sizes
-    fold = {name: {where: {k: results[(path, name)][k]
-                           for k in ("rows", "ms", "plain_ms", "bound_ms")}
+    # tiled window gates of #4 and #6, #1's lanes a row) at both sizes,
+    # #1 also on the single-level path, and #14 on the pallas path and at
+    # the config-2 shape
+    fields = ("rows", "ms", "plain_ms", "bound_ms")
+    fold = {name: {where: {k: results[(path, name)][k] for k in fields}
                    for where, path in (("slice_default", "default"),
                                        ("config5_scan0", "render"))}
             for name in ("compact_sweep", "payload_moment_sums",
                          "stats_sweep", "plane_adopt", "seed_sweep",
-                         "refine_sweep")}
+                         "refine_sweep", "label_sweep")}
+    fold["label_sweep"]["slice_single_level"] = {
+        k: results[("single_level", "label_sweep")][k] for k in fields}
+    fold["knn_exact"] = {
+        "slice_pallas": {k: results[("pallas", "knn_exact")][k]
+                         for k in fields},
+        "config2_shape": {"rows": config2["rows"],
+                          "ms": config2["kernel_ms"], "plain_ms": None,
+                          "bound_ms": config2["bound_ms"]}}
     for name, rec in fold.items():
         print(f"{name}: " + ", ".join(
             f"{where} {r['rows']} rows {r['ms']:.4f} ms (bound "

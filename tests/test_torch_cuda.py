@@ -112,6 +112,76 @@ def test_label_sweep_kernel_matches_plain(scene, signed, w):
     assert torch.equal(k_new, p_new) and torch.equal(k_best, p_best)
 
 
+def _label_args(pos, nrm, mask, seed):
+    """label_sweep inputs on a scene: labels in groups of 7 rows, a fifth
+    dropped, models from the label's row (its normal, a jittered copy of
+    its position), so hops and merges both fire."""
+    n = mask.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rows = torch.arange(n, device=pos.device)
+    label = (rows // 7 * 7).to(torch.int32)
+    drop = torch.rand(n, generator=g).to(pos.device) < 0.2
+    label = torch.where(drop | ~mask, n, label).to(torch.int32)
+    src = label.clamp(max=n - 1).long()
+    has = (label < n)[:, None]
+    mn = torch.where(has, nrm[src], 0.0)
+    jitter = torch.randn((n, 3), generator=g).to(pos.device) * 40.0
+    mc = torch.where(has, pos[src] + jitter, 0.0)
+    cols = lambda t: [t[:, d].contiguous() for d in range(3)]
+    return (cols(pos), cols(nrm), cols(mn), cols(mc), label, mask)
+
+
+def _tiled_scene(scene, n):
+    """The scene repeated side by side (each copy 1e5 mm further in x)
+    and cut to ``n`` rows: a Morton-sorted-like input of any size."""
+    pos, nrm, mask = scene
+    reps = -(-n // mask.shape[0])
+    shift = torch.arange(reps, device=pos.device).repeat_interleave(
+        mask.shape[0])[:, None] * torch.tensor([1e5, 0.0, 0.0],
+                                               device=pos.device)
+    return ((pos.repeat(reps, 1) + shift)[:n].contiguous(),
+            nrm.repeat(reps, 1)[:n].contiguous(), mask.repeat(reps)[:n])
+
+
+@pytest.mark.parametrize("case,w", [
+    ("scene", 1), ("scene", 48), ("cut", 16), ("cut", 48),
+    ("small", 16), ("small", 1), ("all_masked", 16),
+    ("scene", kernels.LABEL_TILE_MAX_W), ("scene", kernels.LABEL_TILE_MAX_W + 1),
+    ("rows_13952", 16), ("rows_73728", 16), ("rows_223232", 16),
+])
+def test_label_sweep_kernel_windows(scene, case, w):
+    """#1 against its plain version, bit for bit: the tile at w = 1, 16
+    (the path's window, the instance with w fixed) and 48, its widest
+    window and one past it (the one-thread-a-row kernel); a row count not
+    a multiple of the 64-row tile with a masked run across a tile edge
+    ("cut"), fewer rows than a tile ("small"), no valid row, and the
+    path's three sizes (the default path's deepest level, config 5's
+    deepest level, the single-level path)."""
+    pos, nrm, mask = scene
+    if case == "cut":
+        pos, nrm, mask = _cut_scene(scene)
+    elif case == "small":
+        pos, nrm, mask = pos[:50].contiguous(), nrm[:50].contiguous(), \
+            mask[:50].clone()
+        mask[:3] = False
+    elif case == "all_masked":
+        mask = torch.zeros_like(mask)
+    elif case.startswith("rows_"):
+        pos, nrm, mask = _tiled_scene(scene, int(case[5:]))
+    args = _label_args(pos, nrm, mask, 5)
+    kw = dict(w=w, th_thickness=TH, th_normal_cos=CTH, edge_gate2=EDGE ** 2,
+              inf_label=mask.shape[0])
+    before = kernels.launch_counts["label_sweep"]
+    k_new, k_best = kernels.label_sweep_cuda(*args, **kw)
+    assert kernels.launch_counts["label_sweep"] == before + 1
+    p_new, p_best = label_sweep_reference(*args, **kw)
+    assert torch.equal(k_new, p_new) and torch.equal(k_best, p_best)
+    if case in ("all_masked",):
+        assert torch.equal(k_new, args[4]) and (k_best == mask.shape[0]).all()
+    elif case != "small" and w > 1:
+        assert (k_new != args[4]).sum() > 100 and (k_best < mask.shape[0]).sum() > 50
+
+
 @pytest.mark.parametrize("anchor_gate", [True, False])
 def test_compact_sweep_kernel_matches_plain(scene, anchor_gate):
     """Three chained sweeps from a singleton slot state: labels and
@@ -654,13 +724,25 @@ def test_plane_adopt_fold_matches_plain(cuda, case, n):
 
 def _knn_cloud(case, device):
     """(positions int32[C, 3], mask bool[C]) on ``device``: a random
-    cloud or the small scene, Morton-sorted, or an unsorted cloud whose
-    last third is padding."""
+    cloud, the small scene, an integer grid, a random cloud whose row
+    count halves both tiles or one over the 20-bit range with
+    near-duplicates, Morton-sorted, or an unsorted cloud whose last third
+    is padding."""
     rng = np.random.default_rng(12)
     if case == "random":
         pts, cap = rng.integers(0, 20_000, (8000, 3)), 8192
     elif case == "scene":
         pts, cap = make_building_cloud(**_SCENE)[0], 9216
+    elif case == "grid":  # extent 14: many equal d², ties by index
+        pts, cap = rng.integers(0, 14, (8000, 3)), 8192
+    elif case == "halved":  # 9,152 = 64 × 143: both tiles halved to 64
+        pts, cap = rng.integers(0, 20_000, (9000, 3)), 9152
+    elif case == "wide":  # the 20-bit range: d² far past 2^24 rounds
+        pts, cap = rng.integers(0, 2**20, (8000, 3)), 8192
+        near = rng.random(8000) < 0.2
+        pts[near] = np.clip(pts[rng.integers(0, 8000, int(near.sum()))]
+                            + rng.integers(-3, 4, (int(near.sum()), 3)),
+                            0, 2**20 - 1)
     else:
         pts, cap = rng.integers(0, 3000, (2000, 3)), 3072
     pos = np.full((cap, 3), 2**24, np.int32)
@@ -674,12 +756,24 @@ def _knn_cloud(case, device):
     return pos, mask
 
 
-@pytest.mark.parametrize("case,k", [("random", 16), ("scene", 16),
-                                    ("scene", 50), ("padding", 16)])
+@pytest.mark.parametrize("case,k", [
+    ("random", 16), ("scene", 16), ("scene", 50), ("padding", 16),
+    ("grid", 16), ("grid", 50), ("halved", 16), ("random", 2),
+    ("wide", 16), ("wide", 50),
+    ("scene", kernels.KNN_TILE_MAX_KK + 1), ("scene", kernels.KNN_TILE_MAX_KK + 2),
+])
 def test_knn_exact_kernel_matches_plain(cuda, case, k):
+    """#14 against its plain version, bit for bit: the warp design up to
+    k = KNN_TILE_MAX_KK + 1, the first design's kernel past it; ties on
+    the integer grid; a row count whose query tile was halved to 64; rows
+    over the 20-bit range with near-duplicates, whose d² lie far past
+    2^24, where the filter's FMA form and the plain d² round apart."""
     pos, mask = _knn_cloud(case, cuda)
     cols, seed_d, seed_i, visit, visit_d2, counts, qt, ct, w = _prepare(
         pos, mask, k)
+    assert qt % kernels.KNN_TILE_QUERIES == 0 and ct % 32 == 0
+    if case == "halved":
+        assert (qt, ct) == (64, 64)
     args = (cols, seed_d, seed_i, visit, visit_d2, counts)
     kw = dict(qt=qt, ct=ct, w_excl=w)
     before = kernels.launch_counts["knn_exact"]
