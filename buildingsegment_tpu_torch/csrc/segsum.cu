@@ -39,7 +39,8 @@
 //   reduce: one 512-thread block per id.  Each round every thread loads
 //     one block's flag and, if set, its partial row into a shared stage,
 //     loading the next round while 14 lanes fold the current one, column
-//     by column in block order.  An untouched block adds +0.f: a fold from
+//     by column in block order, a group of eight loaded ahead of the adds
+//     (block_fold::fold_in_order).  An untouched block adds +0.f: a fold from
 //     +0 never yields -0, so that keeps the bits the plain version's
 //     zero partial gives.
 
@@ -60,19 +61,40 @@
 // plane_sums: acc[t, c] = sum of payload[i, c] over the rows with id_i = t,
 // for t < bound (bound = ceil128(n_live), capped at the table), cols <= 128.
 // The TPU kernel took a one-hot [128, tile] x [tile, cols] matmul per live
-// 128-id chunk, accumulated in VMEM across its sequential grid.  Hopper
-// has direct reductions, so the design is paymom's fixed order: block b
-// owns rows [b*kSegsumRows, (b+1)*kSegsumRows) and sums them in row order
-// into its own partial table [bound, cols] (lane l of one warp owns the
-// columns l, l+32, ...; a run of equal ids accumulates in a register),
-// then a second kernel adds the partial tables in block order.  The plain
-// version (ops/segsum.py block_order_sums) takes the same order, so the
-// two agree bit for bit, and a count column is exact below 2^24.
+// 128-id chunk, accumulated in VMEM across its sequential grid.  The fixed
+// order here is paymom's: block b sums each id's rows of
+// [b*kSegsumRows, (b+1)*kSegsumRows) in row order from +0, then the block
+// partials are added in block order from +0.  The plain version
+// (ops/segsum.py block_order_sums) takes the same order, so the two agree
+// bit for bit, and a count column is exact below 2^24.
 //
-// What bounds it on the H100: latency.  The raster's histogram reads 8 B a
-// row (ids + a ones column, ~9.4 MB at 1.18M rows: ~2.8 us at 3.35 TB/s),
-// but each block walks its 1024 rows one after another with one live lane
-// when cols = 1, and the reduce walks ~1,150 partial tables serially.
+// What bounds it on the H100: latency.  The raster's histogram (1.18M
+// rows, cols = 1, about a dozen live ids) reads 8 B a row (~9.4 MB: ~2.8
+// us at 3.35 TB/s); the fixed order leaves per block one add chain as
+// long as an id's rows there (on a scan, a block's most frequent z bin
+// holds about half its rows), then one chain over the ~1,150 blocks per
+// (id, column); 1,152 blocks of 512 threads fill the SMs in about 2.2
+// waves.
+//
+// Design: paymom's stage-then-fold.
+//   partial: block_fold.cuh, NCOL columns staged a round: 2 (cols <= 2,
+//     the histogram) or 16.  512 threads load the block's ids and
+//     payload coalesced (a dead row's payload is not read), sort the
+//     (id << 10 | row) keys (by counting where the live bound is at most
+//     256, as the histogram's 128 is, else by the bitonic network),
+//     number the runs, and fold each (run, column) from shared memory.
+//     A wider payload folds its columns in chunks of 16 over the same
+//     sorted keys, restaging each chunk: the loads of every add stay in
+//     shared memory, where reading the payload from device memory in
+//     sorted order would put one memory latency in each add of the
+//     chain.  Only the ids the block touches write a partial row; a
+//     per-(block, id) flag marks them;
+//   reduce: one 512-thread block per (id, chunk of 16 columns).  Each
+//     round every thread loads one block's flag and, if set, its partial
+//     row into a shared stage, loading the next round while the lanes of
+//     the columns fold the current one in block order, a group of eight
+//     loaded ahead of the adds.  An untouched block adds +0.f, which
+//     keeps the plain version's bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -166,16 +188,9 @@ paymom_reduce_kernel(const float* __restrict__ partial,
     __syncthreads();
     if (b0 + kReduceThreads < nblk) load(b0 + kReduceThreads, v);
     if (t < kSumCols) {
-      const int cnt = min(kReduceThreads, nblk - b0);
-      int j = 0;
-      for (; j + 8 <= cnt; j += 8) {
-        float u[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) u[k] = stage[(j + k) * kStageStride + t];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc += u[k];
-      }
-      for (; j < cnt; ++j) acc += stage[j * kStageStride + t];
+      acc = block_fold::fold_in_order(
+          0, min(kReduceThreads, nblk - b0), acc,
+          [&](int j) { return stage[j * kStageStride + t]; });
     }
     __syncthreads();
   }
@@ -205,46 +220,123 @@ __global__ void lookup_cols_kernel(const int* __restrict__ ids,
   out[k] = (id >= 0 && id < bound) ? lut[id * cols + c] + 0.f : 0.f;
 }
 
-constexpr int kSegsumRows = 1024;
+constexpr int kSegsumRows = block_fold::kRows;
+constexpr int kSegsumChunk = 16;  // columns a reduce block folds
 
-__global__ void segsum_partial_kernel(const int* __restrict__ ids,
-                                      const float* __restrict__ payload,
-                                      int cols, float* __restrict__ partial,
-                                      int n, int bound) {
+// The partial tables of block b: NCOL payload columns staged a round.
+template <int NCOL>
+__global__ void __launch_bounds__(block_fold::kThreads, NCOL <= 2 ? 4 : 2)
+segsum_partial_kernel(const int* __restrict__ ids,
+                      const float* __restrict__ payload, int cols,
+                      float* __restrict__ partial,
+                      uint8_t* __restrict__ touched, int n, int bound) {
+  using Smem = block_fold::Smem<NCOL>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;  // one warp
-  float* part = partial + static_cast<size_t>(b) * bound * cols;
-  const int r0 = b * kSegsumRows;
-  const int r1 = min(r0 + kSegsumRows, n);
-  for (int c = lane; c < cols; c += 32) {
-    // each lane zeroes and then owns its own columns: no other lane
-    // touches them, so no barrier is needed
-    for (int s = 0; s < bound; ++s) part[s * cols + c] = 0.f;
-    int cur = -1;
-    float acc = 0.f;
-    for (int r = r0; r < r1; ++r) {
-      const int s = ids[r];
-      if (s < 0 || s >= bound) continue;
-      const float v = payload[static_cast<size_t>(r) * cols + c];
-      if (s != cur) {
-        if (cur >= 0) part[cur * cols + c] = acc;
-        cur = s;
-        acc = part[s * cols + c];
-      }
-      acc += v;
+  uint8_t* tflag = touched + static_cast<size_t>(b) * bound;
+  for (int s = threadIdx.x; s < bound; s += blockDim.x) tflag[s] = 0;
+  const int base = b * kSegsumRows;
+  constexpr int kPer = block_fold::kRows / block_fold::kThreads;
+  bool live[kPer];
+  // columns [c0, c0 + NCOL) of this thread's live rows, 0 past cols
+  auto stage = [&](int c0) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (!live[j]) continue;
+      const int i = threadIdx.x + j * block_fold::kThreads;
+      const float* a = payload + static_cast<size_t>(base + i) * cols + c0;
+      float* v = sm.val + i * Smem::kStride;
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) v[c] = c0 + c < cols ? a[c] : 0.f;
     }
-    if (cur >= 0) part[cur * cols + c] = acc;
+  };
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + j * block_fold::kThreads;
+    const int r = base + i;
+    const int s = r < n ? ids[r] : -1;
+    live[j] = s >= 0 && s < bound;
+    sm.key[i] = live[j] ? block_fold::live_key(s, i) : block_fold::dead_key(i);
+  }
+  stage(0);
+  __syncthreads();
+  if (bound <= block_fold::kBucketBound) {
+    int* cnt = reinterpret_cast<int*>(smem_raw + sizeof(Smem));
+    block_fold::bucket_sort_keys(sm.key, cnt, bound + 1, sm.warp_sum);
+  } else {
+    block_fold::sort_keys(sm.key);
+  }
+  const int nrun = block_fold::find_runs(sm.key, sm.seg, sm.warp_sum);
+  float* part = partial + static_cast<size_t>(b) * bound * cols;
+  for (int c0 = 0;;) {
+    block_fold::fold_runs(sm, nrun, [&](int s, int c, float acc) {
+      if (c0 + c < cols) part[s * cols + c0 + c] = acc;
+      if (c0 + c == 0) tflag[s] = 1;
+    });
+    c0 += NCOL;
+    if (c0 >= cols) break;
+    __syncthreads();  // the chunk's folds have read their values
+    stage(c0);
+    __syncthreads();
   }
 }
 
-__global__ void segsum_reduce_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ out, int nblk,
-                                     int size) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= size) return;
-  float a = 0.f;
-  for (int b = 0; b < nblk; ++b) a += partial[static_cast<size_t>(b) * size + k];
-  out[k] = a;
+constexpr int kSegsumStageStride = kSegsumChunk + 1;
+
+// out[s, c0 + c] for one id s (blockIdx.x) and one chunk of up to 16
+// columns (blockIdx.y): the flagged partial rows added in block order.
+__global__ void __launch_bounds__(kReduceThreads)
+segsum_reduce_kernel(const float* __restrict__ partial,
+                     const uint8_t* __restrict__ touched,
+                     float* __restrict__ out, int nblk, int bound,
+                     int cols) {
+  __shared__ float stage[kReduceThreads * kSegsumStageStride];
+  const int s = blockIdx.x;
+  const int c0 = blockIdx.y * kSegsumChunk;
+  const int nc = min(kSegsumChunk, cols - c0);
+  const int t = threadIdx.x;
+  // thread t loads partial block b0 + t of the round
+  auto load = [&](int b0, float* v) {
+    const int b = b0 + t;
+    const bool on = b < nblk && touched[static_cast<size_t>(b) * bound + s];
+    const float* p = partial + (static_cast<size_t>(b) * bound + s) * cols + c0;
+#pragma unroll
+    for (int c = 0; c < kSegsumChunk; ++c) v[c] = on && c < nc ? p[c] : 0.f;
+  };
+  float v[kSegsumChunk];
+  load(0, v);
+  float acc = 0.f;  // thread t < nc: column c0 + t
+  for (int b0 = 0; b0 < nblk; b0 += kReduceThreads) {
+#pragma unroll
+    for (int c = 0; c < kSegsumChunk; ++c)
+      stage[t * kSegsumStageStride + c] = v[c];
+    __syncthreads();
+    if (b0 + kReduceThreads < nblk) load(b0 + kReduceThreads, v);
+    if (t < nc) {
+      acc = block_fold::fold_in_order(
+          0, min(kReduceThreads, nblk - b0), acc,
+          [&](int j) { return stage[j * kSegsumStageStride + t]; });
+    }
+    __syncthreads();
+  }
+  if (t < nc) out[s * cols + c0 + t] = acc;
+}
+
+template <int NCOL>
+int launch_segsum_partial(const int* ids, const float* payload, int cols,
+                          float* partial, uint8_t* touched, int n, int bound,
+                          int nblk, cudaStream_t stream) {
+  // the bucket sort's counts after the staged rows
+  const int smem = sizeof(block_fold::Smem<NCOL>) +
+                   (bound <= block_fold::kBucketBound
+                        ? block_fold::bucket_ints(bound + 1) * 4
+                        : 0);
+  cudaFuncSetAttribute(segsum_partial_kernel<NCOL>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  segsum_partial_kernel<NCOL><<<nblk, block_fold::kThreads, smem, stream>>>(
+      ids, payload, cols, partial, touched, n, bound);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -297,19 +389,25 @@ int bst_lookup_cols(const int* ids, const float* lut, int cols, int bound,
 }
 
 // out: f32[>= bound, cols], rows < bound written; partial: f32[nblk, bound,
-// cols] scratch, nblk = ceil(n / kSegsumRows).
+// cols] and touched: u8[nblk, bound] scratch, nblk = ceil(n / kSegsumRows).
 int bst_plane_sums(const int* ids, const float* payload, int cols,
-                   float* partial, float* out, int n, int bound,
-                   void* stream_ptr) {
+                   float* partial, uint8_t* touched, float* out, int n,
+                   int bound, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || bound <= 0 || cols <= 0 || cols > 128)
+  if (n <= 0 || bound <= 0 || bound >= block_fold::kNoId || cols <= 0 ||
+      cols > 128)
     return cudaErrorInvalidValue;
   const int nblk = (n + kSegsumRows - 1) / kSegsumRows;
-  segsum_partial_kernel<<<nblk, 32, 0, stream>>>(ids, payload, cols, partial,
-                                                 n, bound);
-  const int size = bound * cols;
-  segsum_reduce_kernel<<<(size + 255) / 256, 256, 0, stream>>>(partial, out,
-                                                               nblk, size);
+  const int err =
+      cols <= 2 ? launch_segsum_partial<2>(ids, payload, cols, partial,
+                                           touched, n, bound, nblk, stream)
+                : launch_segsum_partial<kSegsumChunk>(
+                      ids, payload, cols, partial, touched, n, bound, nblk,
+                      stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bound, (cols + kSegsumChunk - 1) / kSegsumChunk);
+  segsum_reduce_kernel<<<grid, kReduceThreads, 0, stream>>>(
+      partial, touched, out, nblk, bound, cols);
   return static_cast<int>(cudaGetLastError());
 }
 

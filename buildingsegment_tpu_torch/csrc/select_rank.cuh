@@ -1,6 +1,6 @@
 // Exact order statistics of one row's candidate values, one thread a row
-// (stats_sweep.cu; the block-form stats_mxu.cu ranks the same way could
-// take it).
+// (stats_sweep.cu, stats_mxu.cu), or one warp a row of at most 128 values
+// (warp_pick, stats_mxu.cu; stats_sweep.cu keeps an inline copy).
 //
 // The r-th smallest of a row's finite values (1-based; equal values each
 // hold a rank) is found in passes over the row.  Pass p keeps, in registers, the
@@ -150,5 +150,47 @@ struct Passes {
     clear();
   }
 };
+
+// The value at sorted position rc (0-based, rc < 128) of up to 128 values
+// held four a lane across a warp (lane l holds positions 4l .. 4l + 3,
+// +inf padded): a bitonic sort across the warp (partners inside a lane,
+// or in lane ^ (j / 4) through a shuffle), then a shuffle from the lane
+// that holds position rc.  Every lane gets the value.
+__device__ __forceinline__ float warp_pick(float (&key)[4], int rc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 128; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j < 4) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int o = r ^ j;
+          if (o > r) {
+            if (((4 * lane + r) & k) == 0) {
+              cmp_swap(key[r], key[o]);
+            } else {
+              cmp_swap(key[o], key[r]);
+            }
+          }
+        }
+      } else {
+        const int m = j >> 2;
+        const bool lower = (lane & m) == 0;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float o = __shfl_xor_sync(0xffffffffu, key[r], m);
+          const bool keep_min = (((4 * lane + r) & k) == 0) == lower;
+          key[r] = keep_min ? fminf(key[r], o) : fmaxf(key[r], o);
+        }
+      }
+    }
+  }
+  float v = key[0];
+#pragma unroll
+  for (int r = 1; r < 4; ++r)
+    if ((rc & 3) == r) v = key[r];
+  return __shfl_sync(0xffffffffu, v, rc >> 2);
+}
 
 }  // namespace select_rank

@@ -30,70 +30,111 @@
 // What bounds them on the H100: the functions compute the work of the
 // exact sweeps (stats_sweep.cu, seed_sweep.cu): a squared distance and a
 // few compares per (row, window candidate), moments per accepted
-// neighbour; bytes are 13-32 B a row in, 4-44 B out.  These designs spend
-// more.  Each thread owns one query and evaluates all C candidates of its
-// block (C = 224 at w = 48, 160 at w = 16), not only its 2w + 1, because
-// the block form defines the ranks and the gate over the whole block; the
-// stats kernel then selects both ranks by a 31-step bisection over the
-// bit patterns of its C values, about 14,000 shared-memory compares a row
-// (select_rank.cuh, which stats_sweep.cu uses, selects with far fewer),
-// with one 128-thread block per SM (its [C][128] rank array takes
-// 112 KB).
+// neighbour; bytes are 13-32 B a row in, 4-44 B out.
 //
 // Design: the TPU kernels made D, the normal cosines and the moments
 // matmuls on the MXU at HIGHEST precision (a bf16 split).  Here the
 // arithmetic stays FP32 on the CUDA cores: TF32 or a bf16 split would
-// break the exact small-span regime.  A block of 128 threads stages its
-// candidates in shared memory, every thread takes the origin by the same
-// min-scan over them (order-free), the block stores each candidate's
-// c-o, |c-o|^2 and BIG_c once, and each thread walks the candidates in
-// order.  A 3xTF32 wgmma form is later work.
+// break the exact small-span regime.  A block of 128 threads, one query
+// each, stages its C candidates in shared memory, takes the origin by a
+// block min-reduction (order-free), and stores each candidate's c-o,
+// |c-o|^2 and BIG_c once.
+//
+// stats_mxu ranks and gates only the query's 2w + 1 window slots.  Every
+// rank value outside the window or at self is clamp(D) + 1e30 >= 1e30,
+// so a rank value below 1e29 is always a window slot's: the r-th
+// smallest over the 2w window values (+inf past them) equals the r-th
+// over all C whenever either is below 1e29, and both give dk = 0 and a
+// cap of r^2 otherwise (while r^2 < 1e29, the wrapper's limit).  The
+// moment gate (<= r_eff^2 <= r^2) passes only the 2w + 1 window slots
+// for the same reason.  Per query:
+//   1. one pass over the window slots in candidate order computes D,
+//      feeds the 2w values to the selection (select_rank.cuh: the 16
+//      smallest, kept sorted in registers), folds the moments of the
+//      slots (self included) with clamp(D) <= r^2, and counts cnt_r, the
+//      window values <= r^2;
+//   2. dk, the r_k-th smallest, comes out of that pass for r_k <= 16;
+//      larger ranks take further passes (D recomputed, not stored);
+//   3. the cap binds only where cnt_r >= r_cap (else the r_cap-th value
+//      exceeds r^2 and the moments of step 1 stand); such a query is
+//      queued and taken by a whole warp after the block's queries: a
+//      bitonic sort of its 2w <= 128 values across the warp gives the
+//      cap, and ten lanes fold the moments over clamp(D) <= cap, one
+//      column each, in candidate order.  Wider windows take further
+//      passes and a second fold in the query's own thread.
+// Order statistics are values, so any exact selection gives the ranks'
+// bits (D is never -0: its last term adds +0 or 1e30).
+//
+// seed_mxu: each thread walks all C candidates of its block (the gate
+// D + (0 in the window, else BIG) <= dk over the whole block).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "select_rank.cuh"
 #include "sweep_common.cuh"
 
 namespace {
 
 constexpr int kBlock = 128;
+constexpr int kWarps = kBlock / 32;
 constexpr float kBig = 1e30f;
 constexpr float kPosFill = -3e7f;
 constexpr float kOriginFill = 3e7f;
-constexpr int kInfBits = 0x7F800000;
 constexpr int kBigCutBits = 0x6FA18F08;  // f32 1e29
+using select_rank::kInf;
+using select_rank::kList;
 
-// Stage the block's C candidates' positions and validity, then replace
-// the positions by c - o and fill |c-o|^2 and BIG_c.  Returns the origin.
+// Stage the block's C candidates' positions and validity, take the
+// origin (per axis the least coordinate of the valid candidates, 0 when
+// there is none) by a block min-reduction, then replace the positions by
+// c - o and fill |c-o|^2 and BIG_c.  blockDim.x == kBlock.
 __device__ __forceinline__ void stage_block(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const uint8_t* __restrict__ mask, int n,
     int w, int C, float* cx, float* cy, float* cz, float* cv, float* c2,
     float& ox, float& oy, float& oz) {
+  __shared__ float red[3][kWarps];
   const int base = blockIdx.x * kBlock - w;
-  for (int k = threadIdx.x; k < C; k += blockDim.x) {
+  float lx = kOriginFill, ly = kOriginFill, lz = kOriginFill;
+  int any = 0;
+  for (int k = threadIdx.x; k < C; k += kBlock) {
     const int r = base + k;
     const bool in = r >= 0 && r < n;
-    cx[k] = in ? px[r] : kPosFill;
-    cy[k] = in ? py[r] : kPosFill;
-    cz[k] = in ? pz[r] : kPosFill;
-    cv[k] = (in && mask[r]) ? 1.f : 0.f;
-  }
-  __syncthreads();
-  ox = kOriginFill;
-  oy = kOriginFill;
-  oz = kOriginFill;
-  bool any = false;
-  for (int c = 0; c < C; ++c) {
-    if (cv[c] > 0.5f) {
-      ox = fminf(ox, cx[c]);
-      oy = fminf(oy, cy[c]);
-      oz = fminf(oz, cz[c]);
-      any = true;
+    const float x = in ? px[r] : kPosFill;
+    const float y = in ? py[r] : kPosFill;
+    const float z = in ? pz[r] : kPosFill;
+    const bool v = in && mask[r];
+    cx[k] = x;
+    cy[k] = y;
+    cz[k] = z;
+    cv[k] = v ? 1.f : 0.f;
+    if (v) {
+      lx = fminf(lx, x);
+      ly = fminf(ly, y);
+      lz = fminf(lz, z);
+      any = 1;
     }
   }
-  if (!any) ox = oy = oz = 0.f;
-  __syncthreads();  // every thread has read the raw positions
-  for (int k = threadIdx.x; k < C; k += blockDim.x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lx = fminf(lx, __shfl_xor_sync(0xffffffffu, lx, o));
+    ly = fminf(ly, __shfl_xor_sync(0xffffffffu, ly, o));
+    lz = fminf(lz, __shfl_xor_sync(0xffffffffu, lz, o));
+  }
+  const int wid = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[0][wid] = lx;
+    red[1][wid] = ly;
+    red[2][wid] = lz;
+  }
+  any = __syncthreads_or(any);  // also publishes red and the raw rows
+  ox = oy = oz = 0.f;
+  if (any) {
+    ox = fminf(fminf(red[0][0], red[0][1]), fminf(red[0][2], red[0][3]));
+    oy = fminf(fminf(red[1][0], red[1][1]), fminf(red[1][2], red[1][3]));
+    oz = fminf(fminf(red[2][0], red[2][1]), fminf(red[2][2], red[2][3]));
+  }
+  for (int k = threadIdx.x; k < C; k += kBlock) {
     const float a = cx[k] - ox, b = cy[k] - oy, d = cz[k] - oz;
     cx[k] = a;
     cy[k] = b;
@@ -103,6 +144,7 @@ __device__ __forceinline__ void stage_block(
   }
   __syncthreads();
 }
+static_assert(kWarps == 4, "stage_block joins four warps' minima");
 
 // D of candidate c for a query with -2(q-o) = (mx, my, mz), |q-o|^2 = q2
 // and BIG_q = bq, the TPU kernel's 8-term row left to right (its last
@@ -120,96 +162,232 @@ __device__ __forceinline__ float block_distance(
   return d + bq;
 }
 
-__global__ void stats_mxu_kernel(
+// One query of the staged block: its window slots' clamped D.
+struct Query {
+  const float *cx, *cy, *cz, *c2, *bc;
+  int self, w;
+  float qxo, qyo, qzo, mx, my, mz, q2, bq;
+
+  __device__ __forceinline__ Query(const float* x, const float* y,
+                                   const float* z, const float* sq,
+                                   const float* big, int t, int w_)
+      : cx(x), cy(y), cz(z), c2(sq), bc(big), self(w_ + t), w(w_) {
+    qxo = cx[self];
+    qyo = cy[self];
+    qzo = cz[self];
+    mx = -2.f * qxo;
+    my = -2.f * qyo;
+    mz = -2.f * qzo;
+    q2 = c2[self];
+    bq = bc[self];
+  }
+
+  // clamp(D) of candidate c (the plain version's clamp_min(D, 0))
+  __device__ __forceinline__ float value(int c) const {
+    return fmaxf(block_distance(cx, cy, cz, c2, bc, c, mx, my, mz, q2, bq),
+                 0.f);
+  }
+
+  // the candidate of rank slot s in [0, 2w): offsets -w..-1, then +1..+w
+  __device__ __forceinline__ int slot(int s) const {
+    return self + (s < w ? s - w : s - w + 1);
+  }
+};
+
+// The raw block-local moments, added in candidate order from +0.
+struct Moments {
+  float m[10];
+
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int j = 0; j < 10; ++j) m[j] = 0.f;
+  }
+
+  __device__ __forceinline__ void add(float a, float b, float e) {
+    m[0] += 1.f;
+    m[1] += a;
+    m[2] += b;
+    m[3] += e;
+    m[4] += a * a;
+    m[5] += b * b;
+    m[6] += e * e;
+    m[7] += a * b;
+    m[8] += a * e;
+    m[9] += b * e;
+  }
+};
+
+// The moments converted to query-centred sums (the TPU kernel's
+// expressions), rows 1-10 of column i.
+__device__ __forceinline__ void write_moments(const float (&m)[10],
+                                              float qxo, float qyo,
+                                              float qzo, float* out, int n,
+                                              int i) {
+  const float m0 = m[0];
+  out[1 * n + i] = m0;
+  out[2 * n + i] = m[1] - m0 * qxo;
+  out[3 * n + i] = m[2] - m0 * qyo;
+  out[4 * n + i] = m[3] - m0 * qzo;
+  out[5 * n + i] = m[4] - 2.f * qxo * m[1] + m0 * qxo * qxo;
+  out[6 * n + i] = m[5] - 2.f * qyo * m[2] + m0 * qyo * qyo;
+  out[7 * n + i] = m[6] - 2.f * qzo * m[3] + m0 * qzo * qzo;
+  out[8 * n + i] = m[7] - qxo * m[2] - qyo * m[1] + m0 * qxo * qyo;
+  out[9 * n + i] = m[8] - qxo * m[3] - qzo * m[1] + m0 * qxo * qzo;
+  out[10 * n + i] = m[9] - qyo * m[3] - qzo * m[2] + m0 * qyo * qzo;
+}
+
+constexpr int kWarpSlots = 128;  // widest 2w of the warp cap path: 4 a lane
+constexpr int kTerms = 10;       // moment columns
+constexpr int kTermStride = kTerms + 1;
+
+// A query whose cap binds, by one warp: its cap from a sort of its
+// 2w <= 128 window values across the warp, then its moments over
+// clamp(D) <= min(r^2, cap) with one lane a column, each column a left
+// fold in candidate order over rounds of 32 of the 2w + 1 slots staged
+// in the warp's scratch (a slot outside the gate stages +0 terms, which
+// leave a fold from +0 unchanged).
+__device__ __forceinline__ void cap_query_by_warp(const Query& q, int r_cap,
+                                                  float r2, float* scr,
+                                                  float* out, int n, int i) {
+  const int lane = threadIdx.x & 31;
+  const int w2 = 2 * q.w;
+  float key[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int s = 4 * lane + r;
+    key[r] = s < w2 ? q.value(q.slot(s)) : kInf;
+  }
+  const float r_eff2 = fminf(r2, select_rank::warp_pick(key, r_cap - 1));
+  float acc = 0.f;  // column `lane`
+  float* mine = scr + lane * kTermStride;
+  const int c0 = q.self - q.w;
+  for (int s0 = 0; s0 <= w2; s0 += 32) {
+    const int s = s0 + lane;
+    const bool use = s <= w2 && q.value(c0 + s) <= r_eff2;
+    const float a = use ? q.cx[c0 + s] : 0.f;
+    const float b = use ? q.cy[c0 + s] : 0.f;
+    const float e = use ? q.cz[c0 + s] : 0.f;
+    mine[0] = use ? 1.f : 0.f;
+    mine[1] = a;
+    mine[2] = b;
+    mine[3] = e;
+    mine[4] = a * a;
+    mine[5] = b * b;
+    mine[6] = e * e;
+    mine[7] = a * b;
+    mine[8] = a * e;
+    mine[9] = b * e;
+    __syncwarp();
+    if (lane < kTerms) {
+      const int cnt = min(32, w2 + 1 - s0);
+      for (int j = 0; j < cnt; ++j) acc += scr[j * kTermStride + lane];
+    }
+    __syncwarp();
+  }
+  float m[10];
+#pragma unroll
+  for (int j = 0; j < kTerms; ++j) m[j] = __shfl_sync(0xffffffffu, acc, j);
+  if (lane == 0) write_moments(m, q.qxo, q.qyo, q.qzo, out, n, i);
+}
+
+__global__ void __launch_bounds__(kBlock, 6) stats_mxu_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const uint8_t* __restrict__ mask,
     float* __restrict__ out, int n, int w, int r_k, int r_cap, float r2) {
   extern __shared__ float sm[];
+  __shared__ float scratch[kWarps][32 * kTermStride];
+  __shared__ int capq[kBlock];  // queries whose cap binds, for the warps
+  __shared__ int ncap;
   const int C = kBlock + 2 * w;
   float* cx = sm;
   float* cy = cx + C;
   float* cz = cy + C;
   float* bc = cz + C;
   float* c2 = bc + C;
-  int* db = reinterpret_cast<int*>(c2 + C);  // [C][kBlock] rank bits
+  if (threadIdx.x == 0) ncap = 0;  // published by stage_block's barriers
   float ox, oy, oz;
   stage_block(px, py, pz, mask, n, w, C, cx, cy, cz, bc, c2, ox, oy, oz);
 
   const int t = threadIdx.x;
   const int i = blockIdx.x * kBlock + t;
-  const int self = w + t;
-  const float qxo = cx[self], qyo = cy[self], qzo = cz[self];
-  const float bq = bc[self];  // the query's own validity
-  const float mx = -2.f * qxo, my = -2.f * qyo, mz = -2.f * qzo;
-  const float q2 = c2[self];
+  const int w2 = 2 * w;
+  const bool warp_cap = w2 <= kWarpSlots;
+  if (i < n) {
+    const Query q(cx, cy, cz, c2, bc, t, w);
 
-  // phase 1: the rank column (D + BIG outside the window and at self)
-  float d_self = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float d = fmaxf(
-        block_distance(cx, cy, cz, c2, bc, c, mx, my, mz, q2, bq), 0.f);
-    const int off = c - self;
-    const bool ranked = off >= -w && off <= w && off != 0;
-    if (off == 0) d_self = d;
-    db[c * kBlock + t] = __float_as_int(ranked ? d : d + kBig);
-  }
-
-  // phase 2: the smallest bit pattern with count(bits <= it) >= r, for
-  // r = r_k and r = r_cap, in one 31-step bisection (exact r-th smallest)
-  int lo1 = 0, hi1 = kInfBits, lo2 = 0, hi2 = kInfBits;
-  for (int it = 0; it < 31; ++it) {
-    const int mid1 = lo1 + ((hi1 - lo1) >> 1);
-    const int mid2 = lo2 + ((hi2 - lo2) >> 1);
-    int n1 = 0, n2 = 0;
-    for (int c = 0; c < C; ++c) {
-      const int b = db[c * kBlock + t];
-      n1 += b <= mid1;
-      n2 += b <= mid2;
+    // 1. the first selection pass, the moments within r^2 (self between
+    // the slots of offsets -1 and +1), cnt_r
+    select_rank::Passes ps;
+    ps.start_first();
+    Moments m;
+    m.start();
+    int cnt_r = 0;
+    for (int s0 = 0; s0 < w2; s0 += kList) {
+#pragma unroll
+      for (int u = 0; u < kList; ++u) {
+        const int s = s0 + u;
+        if (s == w && q.value(q.self) <= r2) m.add(q.qxo, q.qyo, q.qzo);
+        float v = kInf;
+        if (s < w2) {
+          const int c = q.slot(s);
+          v = q.value(c);
+          if (v <= r2) {
+            ++cnt_r;
+            m.add(cx[c], cy[c], cz[c]);
+          }
+        }
+        ps.put_first(u, v);
+      }
+      ps.end_chunk();
     }
-    if (n1 >= r_k) hi1 = mid1; else lo1 = mid1 + 1;
-    if (n2 >= r_cap) hi2 = mid2; else lo2 = mid2 + 1;
-  }
-  const float dk = (r_k == 0 || lo1 >= kBigCutBits) ? 0.f
-                                                    : __int_as_float(lo1);
-  const float r_eff2 = r_cap > 0 ? fminf(r2, __int_as_float(lo2)) : r2;
+    ps.end_pass(true);
 
-  // phase 3: raw block-local moments in candidate order; the gate value
-  // equals the rank value except at self (D + 0)
-  float m0 = 0.f, m1 = 0.f, m2 = 0.f, m3 = 0.f, m4 = 0.f, m5 = 0.f;
-  float m6 = 0.f, m7 = 0.f, m8 = 0.f, m9 = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float g = c == self ? d_self : __int_as_float(db[c * kBlock + t]);
-    if (!(g <= r_eff2)) continue;
-    const float a = cx[c], b = cy[c], e = cz[c];
-    m0 += 1.f;
-    m1 += a;
-    m2 += b;
-    m3 += e;
-    m4 += a * a;
-    m5 += b * b;
-    m6 += e * e;
-    m7 += a * b;
-    m8 += a * e;
-    m9 += b * e;
+    // 2-3. the ranks this thread selects: r_k (0: none; past the 2w
+    // window values: +inf), r_cap where the cap binds and the warp path
+    // does not take the query
+    const bool binds = r_cap > 0 && cnt_r >= r_cap;
+    float dk = kInf, cap = kInf;
+    bool dk_done = r_k <= 0 || r_k > w2 || ps.settle(r_k, dk);
+    bool cap_done = !binds || warp_cap || ps.settle(r_cap, cap);
+    while (!(dk_done && cap_done)) {
+      ps.next_pass();
+      for (int s0 = 0; s0 < w2; s0 += kList) {
+#pragma unroll
+        for (int u = 0; u < kList; ++u) {
+          const int s = s0 + u;
+          ps.put(u, s < w2 ? q.value(q.slot(s)) : kInf);
+        }
+        ps.end_chunk();
+      }
+      ps.end_pass(false);
+      if (!dk_done) dk_done = ps.settle(r_k, dk);
+      if (!cap_done) cap_done = ps.settle(r_cap, cap);
+    }
+    // a rank value at or above 1e29's bits (+inf included) is a mask
+    // payload: dk = 0
+    out[i] = __float_as_int(dk) >= kBigCutBits ? 0.f : dk;
+
+    if (binds && warp_cap) {
+      capq[atomicAdd(&ncap, 1)] = t;
+    } else {
+      if (binds) {  // the moments again, over clamp(D) <= min(r^2, cap)
+        const float r_eff2 = fminf(r2, cap);
+        m.start();
+        for (int c = q.self - w; c <= q.self + w; ++c)
+          if (q.value(c) <= r_eff2) m.add(cx[c], cy[c], cz[c]);
+      }
+      write_moments(m.m, q.qxo, q.qyo, q.qzo, out, n, i);
+    }
   }
-  if (i >= n) return;
-  const float sxx = m4 - 2.f * qxo * m1 + m0 * qxo * qxo;
-  const float syy = m5 - 2.f * qyo * m2 + m0 * qyo * qyo;
-  const float szz = m6 - 2.f * qzo * m3 + m0 * qzo * qzo;
-  const float sxy = m7 - qxo * m2 - qyo * m1 + m0 * qxo * qyo;
-  const float sxz = m8 - qxo * m3 - qzo * m1 + m0 * qxo * qzo;
-  const float syz = m9 - qyo * m3 - qzo * m2 + m0 * qyo * qzo;
-  out[i] = dk;
-  out[1 * n + i] = m0;
-  out[2 * n + i] = m1 - m0 * qxo;
-  out[3 * n + i] = m2 - m0 * qyo;
-  out[4 * n + i] = m3 - m0 * qzo;
-  out[5 * n + i] = sxx;
-  out[6 * n + i] = syy;
-  out[7 * n + i] = szz;
-  out[8 * n + i] = sxy;
-  out[9 * n + i] = sxz;
-  out[10 * n + i] = syz;
+  // 3. the queries whose cap binds, a warp each (in any order: each
+  // query's result is its own)
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  for (int e = warp; e < ncap; e += kWarps) {
+    const int tq = capq[e];
+    cap_query_by_warp(Query(cx, cy, cz, c2, bc, tq, w), r_cap, r2,
+                      scratch[warp], out, n, blockIdx.x * kBlock + tq);
+  }
 }
 
 __global__ void seed_mxu_kernel(
@@ -277,7 +455,7 @@ int bst_stats_mxu(const float* px, const float* py, const float* pz,
                   int r_cap, float r2, void* stream) {
   if (n <= 0 || w < 1) return cudaErrorInvalidValue;
   const int C = kBlock + 2 * w;
-  const int smem = (5 * C + C * kBlock) * 4;
+  const int smem = 5 * C * 4;
   cudaFuncSetAttribute(stats_mxu_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   stats_mxu_kernel<<<(n + kBlock - 1) / kBlock, kBlock, smem,

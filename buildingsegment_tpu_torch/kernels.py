@@ -177,7 +177,7 @@ def _bind() -> None:
     lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
     lib.bst_adopt.argtypes = [_P] * 10 + [_I, _F, _F, _I, _P]
     lib.bst_knn_exact.argtypes = [_P] * 11 + [_I] * 5 + [_P]
-    lib.bst_plane_sums.argtypes = [_P, _P, _I, _P, _P, _I, _I, _P]
+    lib.bst_plane_sums.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _P]
     lib.bst_stats_mxu.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
     lib.bst_seed_mxu.argtypes = [_P] * 9 + [_I, _I, _F, _F, _I, _P]
     lib.bst_lookup_cols.argtypes = [_P, _P, _I, _I, _P, _I, _P]
@@ -355,7 +355,8 @@ PAYMOM_ROWS = 1024
 ADOPT_ROWS = 256
 ADOPT_LANES = 128
 #: rows summed in order by one block of the segment sums (kSegsumRows in
-#: csrc/segsum.cu); the plain version uses the same blocks
+#: csrc/segsum.cu, block_fold::kRows); the plain version uses the same
+#: blocks
 SEGSUM_ROWS = 1024
 #: widest payload the segment-sum kernel takes (the TPU kernel's lane row)
 SEGSUM_MAX_COLS = 128
@@ -417,12 +418,29 @@ def seed_sweep_cuda(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
     return seed
 
 
+#: the block-form stats sweep ranks and gates a query's 2w + 1 window
+#: slots only (csrc/stats_mxu.cu), which gives the block form's outputs
+#: while r² stays below the 1e29 mask cut; its block stages 128 + 2w
+#: candidates (20 B each) in shared memory up to w = 4,096
+STATS_MXU_MAX_W = 4096
+STATS_MXU_MAX_R2 = float(np.float32(1e29))
+
+
 def stats_mxu_cuda(pos, mask, *, k, w, radius, max_nn):
-    """CUDA block-form stats sweep (csrc/stats_mxu.cu); see
+    """CUDA block-form stats sweep (csrc/stats_mxu.cu): 1 ≤ w ≤
+    ``STATS_MXU_MAX_W``, radius² below ``STATS_MXU_MAX_R2``, k ≥ 1,
+    max_nn None or ≥ 1; see
     :func:`buildingsegment_tpu_torch.ops.stats_mxu.stats_mxu`."""
     # imported here: ops.stats_mxu imports this module
     from buildingsegment_tpu_torch.ops.stats_mxu import mxu_r2, mxu_ranks
 
+    r2 = mxu_r2(radius)
+    if not (1 <= w <= STATS_MXU_MAX_W and r2 < STATS_MXU_MAX_R2 and k >= 1
+            and (max_nn is None or max_nn >= 1)):
+        raise ValueError(
+            f"stats_mxu: w={w} (1..{STATS_MXU_MAX_W}), radius²={r2} (below "
+            f"{STATS_MXU_MAX_R2}), k={k} (≥ 1) or max_nn={max_nn} (None or "
+            f"≥ 1) not supported")
     n = mask.shape[0]
     comps = [_f32(t, n, "pos") for t in pos]
     mask_u8 = _mask_bytes(mask, n)
@@ -431,7 +449,7 @@ def stats_mxu_cuda(pos, mask, *, k, w, radius, max_nn):
     lib = _load()
     err = lib.bst_stats_mxu(
         *[t.data_ptr() for t in comps], mask_u8.data_ptr(), out.data_ptr(),
-        n, w, r_k, r_cap, mxu_r2(radius), _stream(out),
+        n, w, r_k, r_cap, r2, _stream(out),
     )
     _check(lib, err, "stats_mxu")
     launch_counts["stats_mxu"] += 1
@@ -564,7 +582,8 @@ def table_lookup_cols_cuda(ids, lut, n_live):
 
 
 def plane_sums_cuda(ids, payload, n_live, *, table_cap):
-    """CUDA per-id sums (csrc/segsum.cu); see
+    """CUDA per-id sums (csrc/segsum.cu): stage-then-fold block partials
+    for a live bound below ``FOLD_ID_LIMIT``; see
     :func:`buildingsegment_tpu_torch.ops.segsum.plane_sums`."""
     n = ids.shape[0]
     cols = payload.shape[1] if payload.dim() == 2 else 0
@@ -575,16 +594,22 @@ def plane_sums_cuda(ids, payload, n_live, *, table_cap):
     payload = _cuda_tensor(payload, torch.float32, (n, cols), "payload")
     cap128 = ceil128(table_cap)
     bound = min(ceil128(n_live), cap128)
-    out = torch.zeros((cap128, cols), dtype=torch.float32, device=ids.device)
+    dev = ids.device
+    out = torch.zeros((cap128, cols), dtype=torch.float32, device=dev)
     if bound == 0 or n == 0:  # no live id or no row: nothing launched
         return out
+    if bound >= FOLD_ID_LIMIT:
+        raise ValueError(f"plane_sums: live bound {bound} not below "
+                         f"{FOLD_ID_LIMIT}")
     nblk = -(-n // SEGSUM_ROWS)
+    # written only where a block touches an id (flagged in ``touched``)
     partial = torch.empty((nblk, bound, cols), dtype=torch.float32,
-                          device=ids.device)
+                          device=dev)
+    touched = torch.empty((nblk, bound), dtype=torch.uint8, device=dev)
     lib = _load()
     err = lib.bst_plane_sums(ids.data_ptr(), payload.data_ptr(), cols,
-                             partial.data_ptr(), out.data_ptr(), n, bound,
-                             _stream(out))
+                             partial.data_ptr(), touched.data_ptr(),
+                             out.data_ptr(), n, bound, _stream(out))
     _check(lib, err, "plane_sums")
     launch_counts["plane_sums"] += 1
     return out

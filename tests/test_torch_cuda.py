@@ -394,11 +394,20 @@ def _sparse_cloud(cuda):
     return T(pos), T(nrm), T(mask), T(dk)
 
 
-@pytest.mark.parametrize("case,radius,max_nn", [
-    ("scene", 100.0, 50), ("scene", 300.0, 50), ("scene", 1e6, None),
-    ("sparse", 3000.0, 20),
+@pytest.mark.parametrize("case,k,w,radius,max_nn", [
+    ("scene", 15, 48, 100.0, 50), ("scene", 15, 48, 300.0, 50),
+    ("scene", 15, 48, 1e6, None), ("sparse", 15, 48, 3000.0, 20),
+    # w = 16; no cap; dk past the 2w window values (0); later selection
+    # passes for both ranks
+    ("scene", 15, 16, 300.0, 20), ("scene", 15, 48, 300.0, None),
+    ("scene", 101, 48, 300.0, 50), ("scene", 40, 48, 300.0, 80),
+    ("sparse", 5, 16, 3000.0, None),
+    # the cap binds on every row: a warp each (2w <= 128), or further
+    # passes and a second fold in the query's thread (2w > 128)
+    ("scene", 15, 48, 1e6, 50), ("scene", 15, 64, 1e6, 50),
+    ("scene", 15, 65, 1e6, 50), ("scene", 40, 100, 1e6, 150),
 ])
-def test_stats_mxu_kernel_matches_plain(scene, case, radius, max_nn):
+def test_stats_mxu_kernel_matches_plain(scene, case, k, w, radius, max_nn):
     """#15 against its plain version, bit for bit, on the card and on the
     CPU: the building scene (Morton-sorted, padded), and the sparse cloud
     with masked rows and empty blocks."""
@@ -406,15 +415,40 @@ def test_stats_mxu_kernel_matches_plain(scene, case, radius, max_nn):
         pos, _nrm, mask = scene
     else:
         pos, _nrm, mask, _dk = _sparse_cloud(scene[0].device)
-    kw = dict(k=15, w=48, radius=radius, max_nn=max_nn)
+    kw = dict(k=k, w=w, radius=radius, max_nn=max_nn)
     before = kernels.launch_counts["stats_mxu"]
     got = kernels.stats_mxu_cuda(_cols(pos), mask, **kw)
     assert kernels.launch_counts["stats_mxu"] == before + 1
     ref = stats_mxu_reference(_cols(pos), mask, **kw)
     on_cpu = stats_mxu_reference(_cols(pos.cpu()), mask.cpu(), **kw)
-    assert (got[0] > 0).sum() > 1000 and (got[1] > 1).sum() > 1000
+    if k - 1 > 2 * w:
+        assert not got[0].any()
+    else:
+        assert (got[0] > 0).sum() > 1000
+    assert (got[1] > 1).sum() > 1000
     for g, r, c in zip(got, ref, on_cpu):
         assert torch.equal(g, r) and torch.equal(g.cpu(), c)
+
+
+def test_stats_mxu_kernel_limits(scene):
+    """#15's named limits: w = ``STATS_MXU_MAX_W`` and a radius² just
+    below ``STATS_MXU_MAX_R2`` (every valid window slot inside it) equal
+    the plain version bit for bit; one past either, k = 0 or max_nn = 0
+    raises."""
+    pos, _nrm, mask = scene
+    pos, mask = pos[:2048], mask[:2048]
+    for w, radius in ((kernels.STATS_MXU_MAX_W, 300.0), (48, 3.16e14)):
+        kw = dict(k=15, w=w, radius=radius, max_nn=50)
+        got = kernels.stats_mxu_cuda(_cols(pos), mask, **kw)
+        ref = stats_mxu_reference(_cols(pos), mask, **kw)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    bad = (dict(w=kernels.STATS_MXU_MAX_W + 1), dict(radius=3.17e14),
+           dict(k=0), dict(max_nn=0))
+    for change in bad:
+        kw = dict(k=15, w=48, radius=300.0, max_nn=50) | change
+        with pytest.raises(ValueError, match="stats_mxu"):
+            kernels.stats_mxu_cuda(_cols(pos), mask, **kw)
 
 
 @pytest.mark.parametrize("case,signed", [("scene", False), ("scene", True),
@@ -585,11 +619,14 @@ def test_table_lookup_kernel_matches_plain(cuda):
         assert torch.equal(got.cpu(), ref)
 
 
-@pytest.mark.parametrize("cols", [1, 8])
+@pytest.mark.parametrize("cols", [1, 2, 3, 8, 17, 128])
 def test_plane_sums_kernel_matches_plain(cuda, cols):
     """#8 against its plain version, on the card and on the CPU, bit for
     bit: ids over a 300-row table with dead ones (negative, above the
-    live bound), 50,000 rows (not a multiple of the 1,024-row blocks)."""
+    live bound), 50,000 rows (not a multiple of the 1,024-row blocks);
+    payloads of 1–2 columns (one staged round) and wider ones (folded 16
+    columns at a time over the same sorted rows: 17 and 128 take two and
+    eight rounds)."""
     g = torch.Generator(device="cpu").manual_seed(cols)
     n = 50_000
     ids = torch.randint(-3, 302, (n,), generator=g, dtype=torch.int32)
@@ -625,6 +662,45 @@ def test_plane_sums_kernel_matches_plain_dense(cuda, cols):
     on_cpu = plane_sums_reference(ids, pay, 12, table_cap=12)
     assert got.shape == (128, cols)
     assert torch.equal(got, on_card) and torch.equal(got.cpu(), on_cpu)
+
+
+def test_plane_sums_kernel_id_limit(cuda):
+    """#8 at the stage-then-fold id limit: the largest live bound below
+    ``FOLD_ID_LIMIT`` (2^21 − 128) equals the plain version bit for bit,
+    its top ids included; a bound of 2^21 raises."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    top = kernels.FOLD_ID_LIMIT // 128 * 128
+    n = 3000
+    ids = torch.randint(top - 300, top + 50, (n,), generator=g,
+                        dtype=torch.int32)
+    ids[::97] = -1
+    pay = (torch.rand((n, 1), generator=g) * 1000.0 - 500.0).to(cuda)
+    ids = ids.to(cuda)
+    got = kernels.plane_sums_cuda(ids, pay, top, table_cap=top)
+    ref = plane_sums_reference(ids, pay, top, table_cap=top)
+    assert got[top - 1, 0] != 0
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="live bound"):
+        kernels.plane_sums_cuda(ids, pay, top + 1, table_cap=top + 1)
+
+
+@pytest.mark.parametrize("payload", ["ones", "float"])
+def test_plane_sums_kernel_config5_histogram(cuda, payload):
+    """#8 at the shape of config 5's ground histogram: 1,179,648 rows,
+    one column, 12 z bins (bound 128), masked rows on bin 12; a ones
+    column as the raster sums, and a float one whose sums depend on the
+    order.  Equal to the plain version bit for bit."""
+    rng = np.random.default_rng(61)
+    n, bins = 1_179_648, 12
+    ids = np.clip(rng.normal(3.0, 2.5, n), 0, bins - 1).astype(np.int32)
+    ids[rng.random(n) < 0.08] = bins
+    pay = (np.ones((n, 1), np.float32) if payload == "ones"
+           else rng.uniform(0, 3000, (n, 1)).astype(np.float32))
+    ids_t, pay_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(pay).to(cuda)
+    got = kernels.plane_sums_cuda(ids_t, pay_t, bins, table_cap=bins)
+    ref = plane_sums_reference(ids_t, pay_t, bins, table_cap=bins)
+    assert got.shape == (128, 1) and int((got[:, 0] > 0).sum()) == bins + 1
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("signed", [False, True])

@@ -1,9 +1,9 @@
 """The summation order the stage-then-fold kernels keep, pinned on the CPU.
 
 ``csrc/compact_sweep.cu`` (#2, per-slot stats), ``csrc/segsum.cu``
-(#11, payload sums and moments about q) and ``csrc/adopt.cu`` (#13,
-per-lane sums of the adopted rows, blocks of 256 rows) must equal their
-plain versions bit for bit.  These tests hold the plain versions against a numpy
+(#11, payload sums and moments about q; #8, the plain per-id sums) and
+``csrc/adopt.cu`` (#13, per-lane sums of the adopted rows, blocks of 256
+rows) must equal their plain versions bit for bit.  These tests hold the plain versions against a numpy
 float32 oracle of the documented order: block b of 1024 rows adds each
 id's rows one after another in row order from +0, then the block tables
 are added in block order from +0.  #2's blocks are shifted by the window
@@ -23,7 +23,10 @@ from buildingsegment_tpu_torch.ops.adopt import (
     adopt_table,
     plane_adopt_reference,
 )
-from buildingsegment_tpu_torch.ops.segsum import payload_moment_sums_reference
+from buildingsegment_tpu_torch.ops.segsum import (
+    payload_moment_sums_reference,
+    plane_sums_reference,
+)
 
 
 def _left_fold_oracle(blk, ids, rows, nblk, size):
@@ -136,6 +139,42 @@ def test_payload_moment_sums_left_fold_order(case):
     _assert_bits(sums[:bound].numpy(), want[:, :8])
     _assert_bits(moments[:bound].numpy(), want[:, 8:])
     assert not sums[bound:].any() and not moments[bound:].any()
+
+
+@pytest.mark.parametrize("case", ["dense_histogram", "sparse_dead"])
+@pytest.mark.parametrize("cols", [1, 3, 8, 128])
+def test_plane_sums_left_fold_order(case, cols):
+    """#8's per-id sums over 1024-row blocks (7,000 rows: the last block
+    partial) equal the oracle bit for bit on float payloads: a dense
+    histogram (12 ids, the raster's shape), and sparse ids in long runs
+    with dead rows (below 0, above the live bound 384, above the table)
+    and a block with no live row; ids in [n_live, 384) still count."""
+    rng = np.random.default_rng(59 + cols)
+    n = 7000
+    if case == "dense_histogram":
+        n_live, cap = 12, 12
+        ids = rng.integers(0, n_live, n)
+    else:
+        n_live, cap = 300, 1024
+        ids = _ids("runs", n, kernels.ceil128(n_live), 0, rng)
+        ids[rng.random(n) < 0.03] = n_live + 40  # above n_live, still live
+        ids[rng.random(n) < 0.05] = -1
+        ids[rng.random(n) < 0.05] = cap + 5
+    ids = ids.astype(np.int32)
+    bound = kernels.ceil128(n_live)
+    pay = rng.uniform(-500, 500, (n, cols)).astype(np.float32)
+
+    live = (ids >= 0) & (ids < bound)
+    blk = np.arange(n)[live] // kernels.SEGSUM_ROWS
+    want = _left_fold_oracle(blk, ids[live], pay[live],
+                             -(-n // kernels.SEGSUM_ROWS), bound)
+    got = plane_sums_reference(torch.from_numpy(ids), torch.from_numpy(pay),
+                               n_live, table_cap=cap)
+    assert got.shape == (kernels.ceil128(cap), cols)
+    _assert_bits(got[:bound].numpy(), want)
+    assert not got[bound:].any()
+    if case == "sparse_dead":
+        assert not live.all()
 
 
 @pytest.mark.parametrize("case", ["scattered", "distinct_lanes"])

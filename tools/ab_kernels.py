@@ -5,7 +5,7 @@ Run on a machine with an NVIDIA card:
 
     python3 tools/ab_kernels.py [--repo DIR] [--label NAME]
         [--kernels compact_sweep,payload_moment_sums | main | off | all]
-        [--reps 50] [--host-split] [--knn-probe]
+        [--reps 50] [--host-split] [--knn-probe] [--widths]
 
 Imports ``buildingsegment_tpu_torch`` from DIR (default: this
 repository's root; an older commit unpacked with ``git archive`` works
@@ -41,7 +41,13 @@ each run's largest ``knn_exact`` input: it builds ``KNN_PROBE_SRC``, a
 copy of that kernel, three ways — as it is; counting the inserts and
 the tiles each query tile visits; and with the insert cut out, visiting
 the tiles the counting run visited (its result is wrong: timing only)
-— and times each with CUDA events.  Prints the card line, then
+— and times each with CUDA events.  ``--widths`` times ``plane_sums``
+(#8) on seeded inputs of config 5's histogram shape (1,179,648 rows, 12
+bins and the masked rows' bin, bound 128) at the payload widths in
+``WIDTHS``, where the main path has only one column.  Each ``plane_sums``
+record also gives ``fold_chain_rows``, the rows of each 1,024-row
+block's most frequent live id: the longest add chain of that block's
+fold.  Prints the card line, then
 one JSON line.  To compare two commits on one card, run it in turns from
 one command: parent, change, change, parent.  Exits non-zero without a
 card.
@@ -96,6 +102,9 @@ MAIN = ("stats_sweep", "seed_sweep", "label_sweep", "compact_sweep",
 OFF = ("plane_sums", "knn_exact", "stats_mxu", "seed_mxu")
 #: the wrappers ``--host-split`` takes apart
 SPLIT = ("label_sweep", "seed_sweep", "refine_sweep")
+#: ``--widths``: payload widths of #8 beside the histogram's one column
+#: (one staged round for 1–2 columns, else 16 columns a round)
+WIDTHS = (1, 2, 3, 16, 17, 128)
 #: the BASELINE config-2 shape: the house at 25.4 mm spacing, k = 16
 CONFIG2_SPACING_MM = 25.4
 CONFIG2_K = 16
@@ -498,6 +507,48 @@ def config2_knn(torch, pts):
     return spos.shape[0]
 
 
+def fold_chain_rows(torch, ids, n_live, table_cap):
+    """#8's longest add chain in each 1,024-row block of a call: the rows
+    of the block's most frequent live id (median, min and max over the
+    blocks)."""
+    bound = min(-(-n_live // 128), -(-table_cap // 128)) * 128
+    n = ids.shape[0]
+    nblk = -(-n // 1024)
+    live = (ids >= 0) & (ids < bound)
+    key = (torch.arange(n, device=ids.device) // 1024 * bound
+           + ids.long())[live]
+    top = torch.bincount(key, minlength=nblk * bound).view(nblk, bound)
+    top = top.max(1).values.float()
+    return {"blocks": nblk, "median": float(top.median()),
+            "min": float(top.min()), "max": float(top.max())}
+
+
+def plane_sums_widths(torch, kernels, profile, activities, reps):
+    """#8 at config 5's histogram shape for each payload width in
+    ``WIDTHS``: CUDA-event ms, host issue ms and profiler card ms a
+    call on seeded ids and payloads."""
+    import numpy as np
+
+    rng = np.random.default_rng(61)
+    n, bins = 1_179_648, 12
+    ids = np.clip(rng.normal(3.0, 2.5, n), 0, bins - 1).astype(np.int32)
+    ids[rng.random(n) < 0.08] = bins
+    ids = torch.from_numpy(ids).cuda()
+    rec = {}
+    for cols in WIDTHS:
+        pay = torch.from_numpy(
+            rng.uniform(0, 3000, (n, cols)).astype(np.float32)).cuda()
+        a, kw = (ids, pay, bins), {"table_cap": bins}
+        fn = kernels.plane_sums_cuda
+        host = per_call_ms(torch, lambda: fn(*a, **kw), reps)
+        dev = device_ms(torch, profile, activities, fn, a, kw, reps)
+        rec[cols] = {"ms": cuda_event_ms(torch, lambda: fn(*a, **kw), reps),
+                     "host_ms": host, "device_ms_total": sum(dev.values()),
+                     "device_ms": dev}
+    rec["fold_chain_rows"] = fold_chain_rows(torch, ids, bins, bins)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
@@ -507,6 +558,7 @@ def main():
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--host-split", action="store_true")
     ap.add_argument("--knn-probe", action="store_true")
+    ap.add_argument("--widths", action="store_true")
     args = ap.parse_args()
     names = {"main": list(MAIN), "off": list(OFF),
              "all": list(MAIN + OFF)}.get(args.kernels)
@@ -625,6 +677,9 @@ def main():
                 r: sum(device_ms(torch, profile, activities, fn,
                                  *calls[rows.index(r)], args.reps).values())
                 for r in sorted(set(rows)) if r != max(rows)}
+            if name == "plane_sums":
+                rec[name]["fold_chain_rows"] = fold_chain_rows(
+                    torch, a[0], a[2], kw["table_cap"])
             if args.host_split and name in SPLIT:
                 rec[name]["host_split_ms"] = host_split(
                     torch, kernels, name, a, kw, 4 * args.reps)
@@ -633,6 +688,9 @@ def main():
                                                max(3, args.reps // 10))
         out["runs"][run] = rec
         del seen
+    if args.widths and "plane_sums" in names:
+        out["plane_sums_widths"] = plane_sums_widths(
+            torch, kernels, profile, activities, args.reps)
     print(json.dumps(out))
 
 
