@@ -21,7 +21,8 @@
 // plain version's mask and padding do.  Four lanes share a row: lane l
 // takes slots l, l + 4, ... of the 2w (eight each at w = 16, unrolled in
 // the instance with w fixed), and two xor shuffles join the lanes' hop
-// minimum `nw` and merge-hook minimum `best`.  An integer min is exact
+// minimum `nw` and merge-hook minimum `best` (sweep_common.cuh
+// window_tile_row, shared with compact_sweep.cu's hop).  An integer min is exact
 // in any order and split, and each candidate's test is the exact f32
 // operations of the plain version (sweep_common.cuh, -fmad=false), so
 // the output equals it bit for bit.  A masked row runs no slot and
@@ -85,32 +86,9 @@ __global__ void __launch_bounds__(kLabelThreads) label_tile_kernel(
   const int r = t / kLabelLanes;
   const int lane = t % kLabelLanes;
   const int i = b0 + r;
-  const float4 me = sp[r + w];
-  const int lab0 = __float_as_int(me.w);
-  int nw = lab0;
-  int best = p.inf;
-  // a masked row (x = NaN) or a row past n runs no slot; all four lanes
-  // of a row take the same branch
-  if (i < n && me.x == me.x) {
-    const float4 m = smn[r + w], c = smc[r + w];
-    const RowModel rm{me.x, me.y, me.z, nx[i], ny[i], nz[i],
-                      m.x,  m.y,  m.z,  c.x,   c.y,   c.z};
-    const bool has = lab0 < p.inf;
-#pragma unroll(kW > 0 ? (2 * kW) / kLabelLanes : 1)
-    for (int slot = lane; slot < 2 * w; slot += kLabelLanes) {
-      const int s = r + slot + (slot >= w);
-      const float4 b = sp[s];
-      if (!window_near(rm, b.x, b.y, b.z, p.eg2)) continue;
-      const float4 bm = smn[s], bc = smc[s];
-      window_candidate(rm, lab0, has, __float_as_int(b.w), bm.x, bm.y, bm.z,
-                       bc.x, bc.y, bc.z, p, nw, best);
-    }
-  }
-#pragma unroll
-  for (int o = kLabelLanes / 2; o > 0; o >>= 1) {
-    nw = min(nw, __shfl_xor_sync(0xffffffffu, nw, o));
-    best = min(best, __shfl_xor_sync(0xffffffffu, best, o));
-  }
+  int nw, best;
+  window_tile_row<kW, kLabelLanes>(sp, smn, smc, r, lane, w, i, n, nx, ny, nz,
+                                   p, nw, best);
   if (i < n && lane == 0) {
     new_out[i] = nw;
     best_out[i] = best;

@@ -65,8 +65,14 @@
 // Order statistics are values, so any exact selection gives the ranks'
 // bits (D is never -0: its last term adds +0 or 1e30).
 //
-// seed_mxu: each thread walks all C candidates of its block (the gate
-// D + (0 in the window, else BIG) <= dk over the whole block).
+// seed_mxu: one thread a query.  For the same reason, while the
+// ball is below 1e29 and every staged |c-o|^2 below 1e28 (so that D >
+// -6.1e28), a candidate outside the window, whose gate value is D + 1e30
+// >= 9e29, never enters the ball: the query walks its 2w window slots
+// only.  A query with a larger ball (+inf included), or in a block with
+// a larger staged value, walks all C candidates with the window term; a
+// NaN ball passes nothing on either walk, and an invalid query is no
+// seed whatever it meets, so it walks nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,6 +90,57 @@ constexpr int kBigCutBits = 0x6FA18F08;  // f32 1e29
 using select_rank::kInf;
 using select_rank::kList;
 
+// A min that keeps a NaN, as the plain version's amin does (order-free
+// up to the sign of a zero, which no output sees).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// A thread's share of the block origin: per axis the least of its
+// candidates' coordinates, a valid candidate giving its own and any other
+// the fill 3e7 (the plain version's where(valid, c, 3e7).amin()).
+struct OriginPart {
+  float x = kInf, y = kInf, z = kInf;
+  int any = 0;
+
+  __device__ __forceinline__ void add(float cx, float cy, float cz, bool v) {
+    x = min_nan(x, v ? cx : kOriginFill);
+    y = min_nan(y, v ? cy : kOriginFill);
+    z = min_nan(z, v ? cz : kOriginFill);
+    any |= v;
+  }
+
+  // The block's origin from every thread's part (0 when no candidate is
+  // valid); red: [3][W] shared, W the block's warps.  Its barrier also
+  // publishes what the threads staged before.
+  template <int W>
+  __device__ __forceinline__ void join(float (*red)[W], float& ox, float& oy,
+                                       float& oz) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      x = min_nan(x, __shfl_xor_sync(0xffffffffu, x, o));
+      y = min_nan(y, __shfl_xor_sync(0xffffffffu, y, o));
+      z = min_nan(z, __shfl_xor_sync(0xffffffffu, z, o));
+    }
+    const int wid = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      red[0][wid] = x;
+      red[1][wid] = y;
+      red[2][wid] = z;
+    }
+    ox = oy = oz = 0.f;
+    if (__syncthreads_or(any)) {
+      ox = oy = oz = kInf;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        ox = min_nan(ox, red[0][k]);
+        oy = min_nan(oy, red[1][k]);
+        oz = min_nan(oz, red[2][k]);
+      }
+    }
+  }
+};
+
 // Stage the block's C candidates' positions and validity, take the
 // origin (per axis the least coordinate of the valid candidates, 0 when
 // there is none) by a block min-reduction, then replace the positions by
@@ -95,8 +152,7 @@ __device__ __forceinline__ void stage_block(
     float& ox, float& oy, float& oz) {
   __shared__ float red[3][kWarps];
   const int base = blockIdx.x * kBlock - w;
-  float lx = kOriginFill, ly = kOriginFill, lz = kOriginFill;
-  int any = 0;
+  OriginPart org;
   for (int k = threadIdx.x; k < C; k += kBlock) {
     const int r = base + k;
     const bool in = r >= 0 && r < n;
@@ -108,32 +164,9 @@ __device__ __forceinline__ void stage_block(
     cy[k] = y;
     cz[k] = z;
     cv[k] = v ? 1.f : 0.f;
-    if (v) {
-      lx = fminf(lx, x);
-      ly = fminf(ly, y);
-      lz = fminf(lz, z);
-      any = 1;
-    }
+    org.add(x, y, z, v);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lx = fminf(lx, __shfl_xor_sync(0xffffffffu, lx, o));
-    ly = fminf(ly, __shfl_xor_sync(0xffffffffu, ly, o));
-    lz = fminf(lz, __shfl_xor_sync(0xffffffffu, lz, o));
-  }
-  const int wid = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[0][wid] = lx;
-    red[1][wid] = ly;
-    red[2][wid] = lz;
-  }
-  any = __syncthreads_or(any);  // also publishes red and the raw rows
-  ox = oy = oz = 0.f;
-  if (any) {
-    ox = fminf(fminf(red[0][0], red[0][1]), fminf(red[0][2], red[0][3]));
-    oy = fminf(fminf(red[1][0], red[1][1]), fminf(red[1][2], red[1][3]));
-    oz = fminf(fminf(red[2][0], red[2][1]), fminf(red[2][2], red[2][3]));
-  }
+  org.join(red, ox, oy, oz);
   for (int k = threadIdx.x; k < C; k += kBlock) {
     const float a = cx[k] - ox, b = cy[k] - oy, d = cz[k] - oz;
     cx[k] = a;
@@ -144,21 +177,21 @@ __device__ __forceinline__ void stage_block(
   }
   __syncthreads();
 }
-static_assert(kWarps == 4, "stage_block joins four warps' minima");
 
-// D of candidate c for a query with -2(q-o) = (mx, my, mz), |q-o|^2 = q2
-// and BIG_q = bq, the TPU kernel's 8-term row left to right (its last
-// term, 0·0, adds nothing: no partial sum after |c-o|^2 is -0).
-__device__ __forceinline__ float block_distance(
-    const float* cx, const float* cy, const float* cz, const float* c2,
-    const float* bc, int c, float mx, float my, float mz, float q2,
-    float bq) {
-  float d = cx[c] * mx;
-  d = d + cy[c] * my;
-  d = d + cz[c] * mz;
-  d = d + c2[c];
+// D of a candidate at c-o = (cx, cy, cz) with |c-o|^2 = c2 and BIG_c =
+// bc, for a query with -2(q-o) = (mx, my, mz), |q-o|^2 = q2 and BIG_q =
+// bq: the TPU kernel's 8-term row left to right (its last term, 0·0,
+// adds nothing: no partial sum after |c-o|^2 is -0).
+__device__ __forceinline__ float block_distance(float cx, float cy, float cz,
+                                                float c2, float bc, float mx,
+                                                float my, float mz, float q2,
+                                                float bq) {
+  float d = cx * mx;
+  d = d + cy * my;
+  d = d + cz * mz;
+  d = d + c2;
   d = d + q2;
-  d = d + bc[c];
+  d = d + bc;
   return d + bq;
 }
 
@@ -184,7 +217,8 @@ struct Query {
 
   // clamp(D) of candidate c (the plain version's clamp_min(D, 0))
   __device__ __forceinline__ float value(int c) const {
-    return fmaxf(block_distance(cx, cy, cz, c2, bc, c, mx, my, mz, q2, bq),
+    return fmaxf(block_distance(cx[c], cy[c], cz[c], c2[c], bc[c], mx, my,
+                                mz, q2, bq),
                  0.f);
   }
 
@@ -390,60 +424,103 @@ __global__ void __launch_bounds__(kBlock, 6) stats_mxu_kernel(
   }
 }
 
-__global__ void seed_mxu_kernel(
+// a block whose staged |c-o|^2 all lie below this keeps every D above
+// -6.1e28, so D + 1e30 > 9e29 for every candidate outside the window
+constexpr float kSeedSafeC2 = 1e28f;
+constexpr float kBigCut = 1e29f;  // f32(1e29): a ball below it is a distance
+
+// One (query, candidate) test of the seed gate: true when the candidate
+// lies in the ball (D + win <= ball) and fails the plane band or the
+// normal agreement.  P: (c-o, |c-o|^2), N: (n_c, BIG_c).
+__device__ __forceinline__ bool seed_fails(const float4 cp, const float4 cn,
+                                           float win, float mx, float my,
+                                           float mz, float q2, float bq,
+                                           float ball, float qnx, float qny,
+                                           float qnz, float qdotn, float th,
+                                           float cth, int sgn) {
+  const float d = block_distance(cp.x, cp.y, cp.z, cp.w, cn.w, mx, my, mz,
+                                 q2, bq);
+  if (!(d + win <= ball)) return false;
+  const float dn = cn.x * qnx + cn.y * qny + cn.z * qnz;
+  const float dp = cp.x * qnx + cp.y * qny + cp.z * qnz;
+  const float pd = fabsf(dp - qdotn);
+  return !(pd <= th && cmag(dn, sgn) >= cth);
+}
+
+// One thread a query: the block stages its C candidates as two float4
+// arrays and takes the origin as stage_block does; a valid query whose
+// ball is below 1e29 walks its 2w window slots (self excluded) and stops
+// at its first failure; any other valid query, and every query of a
+// block with a staged |c-o|^2 at or above kSeedSafeC2 (or +inf), walks
+// all C candidates with the window term.
+__global__ void __launch_bounds__(kBlock) seed_mxu_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, const float* __restrict__ nx,
     const float* __restrict__ ny, const float* __restrict__ nz,
     const uint8_t* __restrict__ mask, const float* __restrict__ dk,
     uint8_t* __restrict__ seed, int n, int w, float th, float cth,
     int sgn) {
-  extern __shared__ float sm[];
+  extern __shared__ float4 sm4[];
+  __shared__ float red[3][kWarps];
   const int C = kBlock + 2 * w;
-  float* cx = sm;
-  float* cy = cx + C;
-  float* cz = cy + C;
-  float* bc = cz + C;
-  float* c2 = bc + C;
-  float* cnx = c2 + C;
-  float* cny = cnx + C;
-  float* cnz = cny + C;
+  float4* P = sm4;      // (c-o, |c-o|^2); raw positions until the origin
+  float4* N = sm4 + C;  // (n_c, BIG_c)
   const int base = blockIdx.x * kBlock - w;
-  for (int k = threadIdx.x; k < C; k += blockDim.x) {
-    const int r = base + k;
-    const bool in = r >= 0 && r < n;
-    cnx[k] = in ? nx[r] : 0.f;
-    cny[k] = in ? ny[r] : 0.f;
-    cnz[k] = in ? nz[r] : 0.f;
-  }
-  float ox, oy, oz;
-  stage_block(px, py, pz, mask, n, w, C, cx, cy, cz, bc, c2, ox, oy, oz);
-
   const int t = threadIdx.x;
   const int i = blockIdx.x * kBlock + t;
+  // the query's own loads, issued before the staging waits (an invalid
+  // query is no seed whatever it meets: it walks nothing)
+  const bool valid = i < n && mask[i];
+  const float ball = valid ? dk[i] : 0.f;
+  OriginPart org;
+  for (int k = t; k < C; k += kBlock) {
+    const int r = base + k;
+    const bool in = r >= 0 && r < n;
+    const float x = in ? px[r] : kPosFill;
+    const float y = in ? py[r] : kPosFill;
+    const float z = in ? pz[r] : kPosFill;
+    const bool v = in && mask[r];
+    P[k] = make_float4(x, y, z, 0.f);
+    N[k] = make_float4(in ? nx[r] : 0.f, in ? ny[r] : 0.f, in ? nz[r] : 0.f,
+                       v ? 0.f : kBig);
+    org.add(x, y, z, v);
+  }
+  float ox, oy, oz;
+  org.join(red, ox, oy, oz);
+  int unsafe = 0;
+  for (int k = t; k < C; k += kBlock) {
+    const float4 c = P[k];
+    const float a = c.x - ox, b = c.y - oy, e = c.z - oz;
+    const float c2 = a * a + b * b + e * e;
+    P[k] = make_float4(a, b, e, c2);
+    unsafe |= c2 >= kSeedSafeC2;
+  }
+  unsafe = __syncthreads_or(unsafe);
+
   if (i >= n) return;
-  const int self = w + t;
-  const float qxo = cx[self], qyo = cy[self], qzo = cz[self];
-  const float qnx = cnx[self], qny = cny[self], qnz = cnz[self];
-  const float bq = bc[self];
-  const float mx = -2.f * qxo, my = -2.f * qyo, mz = -2.f * qzo;
-  const float q2 = c2[self];
-  const float ball = dk[i];
-  const float qdotn = qxo * qnx + qyo * qny + qzo * qnz;
   bool bad = false;
-  for (int c = 0; c < C; ++c) {
-    const int off = c - self;
-    const float win = (off >= -w && off <= w && off != 0) ? 0.f : kBig;
-    const float d = block_distance(cx, cy, cz, c2, bc, c, mx, my, mz, q2, bq);
-    if (!(d + win <= ball)) continue;
-    const float cn = cnx[c] * qnx + cny[c] * qny + cnz[c] * qnz;
-    const float cp = cx[c] * qnx + cy[c] * qny + cz[c] * qnz;
-    const float pd = fabsf(cp - qdotn);
-    if (!(pd <= th && cmag(cn, sgn) >= cth)) {
-      bad = true;
-      break;
+  if (valid) {
+    const int self = w + t;
+    const float4 q = P[self], qn = N[self];
+    const float mx = -2.f * q.x, my = -2.f * q.y, mz = -2.f * q.z;
+    const float qdotn = q.x * qn.x + q.y * qn.y + q.z * qn.z;
+    if (!unsafe && ball < kBigCut) {
+      // the window slots: offsets -w..-1, then +1..+w
+      for (int s = 0; s < 2 * w && !bad; ++s) {
+        const int c = self + (s < w ? s - w : s - w + 1);
+        bad = seed_fails(P[c], N[c], 0.f, mx, my, mz, q.w, qn.w, ball, qn.x,
+                         qn.y, qn.z, qdotn, th, cth, sgn);
+      }
+    } else {
+      for (int c = 0; c < C && !bad; ++c) {
+        const int off = c - self;
+        const float win = (off >= -w && off <= w && off != 0) ? 0.f : kBig;
+        bad = seed_fails(P[c], N[c], win, mx, my, mz, q.w, qn.w, ball, qn.x,
+                         qn.y, qn.z, qdotn, th, cth, sgn);
+      }
     }
   }
-  seed[i] = mask[i] != 0 && !bad;
+  seed[i] = valid && !bad;
 }
 
 }  // namespace
@@ -470,7 +547,7 @@ int bst_seed_mxu(const float* px, const float* py, const float* pz,
                  int w, float th, float cth, int sgn, void* stream) {
   if (n <= 0 || w < 1) return cudaErrorInvalidValue;
   const int C = kBlock + 2 * w;
-  const int smem = 8 * C * 4;
+  const int smem = 2 * C * static_cast<int>(sizeof(float4));
   cudaFuncSetAttribute(seed_mxu_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   seed_mxu_kernel<<<(n + kBlock - 1) / kBlock, kBlock, smem,

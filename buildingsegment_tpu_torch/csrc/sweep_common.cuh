@@ -83,3 +83,46 @@ __device__ __forceinline__ bool window_near(
   float dz = r.pz - qz;
   return dx * dx + dy * dy + dz * dz <= eg2;
 }
+
+// One row of a staged window tile (label_sweep.cu's tile, compact_sweep.cu's
+// hop): rows [b0 - w, b0 + rows + w) of the block sit in shared memory as
+// three float4s a row -- (x, y, z, label bits) with x = NaN for a masked
+// row or one outside [0, n), so its edge gate fails without a branch; the
+// model normal; the model center -- and block row r (staged at r + w, row
+// i of the problem) walks its 2w slots with kLanes lanes, lane l taking
+// slots l, l + kLanes, ...  Xor shuffles join the lanes' hop minimum `nw`
+// and merge-hook minimum `best` (integer mins: exact in any order and
+// split).  A masked row or one past n runs no slot: nw = its label, best =
+// inf.  kW > 0 fixes w at compile time.  Every lane of the warp calls it.
+template <int kW, int kLanes>
+__device__ __forceinline__ void window_tile_row(
+    const float4* sp, const float4* smn, const float4* smc, int r, int lane,
+    int w, int i, int n, const float* __restrict__ nx,
+    const float* __restrict__ ny, const float* __restrict__ nz,
+    const WindowParams& p, int& nw, int& best) {
+  const float4 me = sp[r + w];
+  const int lab0 = __float_as_int(me.w);
+  nw = lab0;
+  best = p.inf;
+  // all lanes of a row take the same branch
+  if (i < n && me.x == me.x) {
+    const float4 m = smn[r + w], c = smc[r + w];
+    const RowModel rm{me.x, me.y, me.z, nx[i], ny[i], nz[i],
+                      m.x,  m.y,  m.z,  c.x,   c.y,   c.z};
+    const bool has = lab0 < p.inf;
+#pragma unroll(kW > 0 ? (2 * kW) / kLanes : 1)
+    for (int slot = lane; slot < 2 * w; slot += kLanes) {
+      const int s = r + slot + (slot >= w);
+      const float4 b = sp[s];
+      if (!window_near(rm, b.x, b.y, b.z, p.eg2)) continue;
+      const float4 bm = smn[s], bc = smc[s];
+      window_candidate(rm, lab0, has, __float_as_int(b.w), bm.x, bm.y, bm.z,
+                       bc.x, bc.y, bc.z, p, nw, best);
+    }
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) {
+    nw = min(nw, __shfl_xor_sync(0xffffffffu, nw, o));
+    best = min(best, __shfl_xor_sync(0xffffffffu, best, o));
+  }
+}

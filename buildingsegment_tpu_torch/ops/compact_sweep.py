@@ -35,7 +35,7 @@ from buildingsegment_tpu_torch.ops.segsum import block_order_sums
 from buildingsegment_tpu_torch.ops.window_sweep import label_sweep_reference
 
 __all__ = ["compact_sweep", "compact_sweep_reference", "compact_slot_stats",
-           "COMPACT_L"]
+           "compact_pair_parents", "COMPACT_L"]
 
 #: compact slot capacity (the TPU kernel's measured choice, kept so the
 #: two packages switch to the compact loop at the same live count)
@@ -79,6 +79,46 @@ def compact_slot_stats(pos, cnrm, clabel, anchor, bound, *, lc, w,
     return block_order_sums(blk[valid], slot[valid], payload[valid], nblk, lc)
 
 
+def compact_pair_parents(parent, mn, ctr, reach, cnt, bound, *, lc,
+                         th_thickness, th_normal_cos, root_gate,
+                         signed=False):
+    """Section H of the sweep: the global coplanar-overlap tests over the
+    live slots below ``bound`` (row i = the partner, column j = the slot
+    that hooks; slots with count 0 take no part), and ``parent[:bound]``
+    lowered to min(i, j) of each column's passing pairs, i ≠ j.  ``mn``,
+    ``ctr``: f32[3, lc] model normals and centers as component rows;
+    ``reach``, ``cnt``: f32[lc]; ``parent``: int32[lc].  Returns the new
+    parent table."""
+    cmag = (lambda x: x) if signed else torch.abs
+    b = int(bound)
+    mi = [t[:b, None] for t in mn]
+    ci = [t[:b, None] for t in ctr]
+    mj = [t[None, :b] for t in mn]
+    cj = [t[None, :b] for t in ctr]
+    ncd = _dot3(mn, ctr)[:b]
+    ccd = _dot3(ctr, ctr)
+    nrm_sep = _dot3(ci, mj) - ncd[None, :]      # (c_i − c_j)·n_j
+    nrm_sep_b = ncd[:, None] - _dot3(mi, cj)    # (c_i − c_j)·n_i
+    cosab = cmag(_dot3(mi, mj))
+    d2 = ccd[:b, None] + ccd[None, :b] - 2.0 * _dot3(ci, cj)
+    inplane2 = torch.clamp_min(d2 - nrm_sep * nrm_sep, 0.0)
+    rch = reach[:b, None] + reach[None, :b] + root_gate
+    live = cnt[:b] > 0
+    ids = torch.arange(b, dtype=torch.int32, device=parent.device)
+    ok = (
+        (torch.abs(nrm_sep) <= th_thickness)
+        & (torch.abs(nrm_sep_b) <= th_thickness)
+        & (cosab >= th_normal_cos)
+        & (inplane2 <= rch * rch)
+        & live[:, None] & live[None, :]
+        & (ids[:, None] != ids[None, :])
+    )
+    pair_lo = torch.where(ok, torch.minimum(ids[:, None], ids[None, :]), lc)
+    parent = parent.clone()
+    parent[:b] = torch.minimum(parent[:b], pair_lo.amin(dim=0))
+    return parent
+
+
 def compact_sweep_reference(
     pos, nrm, cnrm, mask, clabel, anchor, bound, *, lc, w, th_thickness,
     th_normal_cos, edge_gate2, root_gate, th_anchor_cos, anchor_gate,
@@ -87,7 +127,6 @@ def compact_sweep_reference(
     """Plain PyTorch version of :func:`compact_sweep`, section by
     section after the TPU kernel."""
     dev = clabel.device
-    cmag = (lambda x: x) if signed else torch.abs
     valid = clabel < bound
     slot = clabel.clamp(max=lc - 1).long()
 
@@ -131,32 +170,11 @@ def compact_sweep_reference(
     hooked = best < lc
     parent.scatter_reduce_(0, slot[hooked], best[hooked], "amin")
 
-    # H. pair tests over live slots (row i = partner, column j = the
-    # slot that hooks), min per column
+    # H. pair tests over live slots
     b = int(bound)
-    mi = [t[:b, None] for t in mn]
-    ci = [t[:b, None] for t in ctr]
-    mj = [t[None, :b] for t in mn]
-    cj = [t[None, :b] for t in ctr]
-    ncd = _dot3(mn, ctr)[:b]
-    nrm_sep = _dot3(ci, mj) - ncd[None, :]      # (c_i − c_j)·n_j
-    nrm_sep_b = ncd[:, None] - _dot3(mi, cj)    # (c_i − c_j)·n_i
-    cosab = cmag(_dot3(mi, mj))
-    d2 = ccd[:b, None] + ccd[None, :b] - 2.0 * _dot3(ci, cj)
-    inplane2 = torch.clamp_min(d2 - nrm_sep * nrm_sep, 0.0)
-    rch = reach[:b, None] + reach[None, :b] + root_gate
-    live = cnt[:b] > 0
-    ids = torch.arange(b, dtype=torch.int32, device=dev)
-    ok = (
-        (torch.abs(nrm_sep) <= th_thickness)
-        & (torch.abs(nrm_sep_b) <= th_thickness)
-        & (cosab >= th_normal_cos)
-        & (inplane2 <= rch * rch)
-        & live[:, None] & live[None, :]
-        & (ids[:, None] != ids[None, :])
-    )
-    pair_lo = torch.where(ok, torch.minimum(ids[:, None], ids[None, :]), lc)
-    parent[:b] = torch.minimum(parent[:b], pair_lo.amin(dim=0))
+    parent = compact_pair_parents(
+        parent, mn, ctr, reach, cnt, b, lc=lc, th_thickness=th_thickness,
+        th_normal_cos=th_normal_cos, root_gate=root_gate, signed=signed)
 
     # I. synchronous jump rounds within the live-chunk cover
     cover = -(-b // _CHUNK) * _CHUNK

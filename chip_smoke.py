@@ -33,6 +33,10 @@ Phases, in order; the first failure exits non-zero:
    ``torch.topk`` over 4,096-query blocks: the expansion form, inexact,
    timing only); #15 and #3 are timed on the ``mxu`` path's stats input,
    #16 and #4 on its seed input, in turns (exact, block, block, exact);
+   #16 is also held on its inputs with balls at or above 1e29, +inf and
+   NaN on every sixth row (its full walk over all C candidates); #2's
+   card ms by phase (``torch.profiler``, each launch of the sweep) over
+   the default path's calls, beside each call's live slot bound;
 5. small-input check: the window configurations, the ``mxu`` path and
    the exact-kNN methods "brute" and "pallas" on a 9k-point scene on the
    card and on the CPU (plain versions) — same plane count, cross
@@ -71,7 +75,7 @@ Phases, in order; the first failure exits non-zero:
    of the path (the default path's eight at this capacity and
    ``plane_sums``, kernel #8, the ground histogram), each held bit for
    bit against its plain version and timed beside its bound (#8 also
-   beside ``index_add_``); then the measured run, with launch counts
+   beside ``index_add_``; #2 also by phase, as in step 4); then the measured run, with launch counts
    reset: every kernel of the default path and ``plane_sums`` once per
    scan must launch; no output keeps its positions on the card; each PLY
    reads back with its point count; each scan's labels and planes equal
@@ -92,7 +96,7 @@ Phases, in order; the first failure exits non-zero:
    rows; #14 is reported on the pallas path and at the config-2 shape;
 11. the ``mxu`` path at full size: config 5's scan 0 (1,082,304 points,
    capacity 1,179,648) through ``segment_file``: every #15 and #16 call
-   held bit for bit; #15 and #3 timed on the same captured stats input,
+   held bit for bit (#16 also with the full-walk balls of step 4); #15 and #3 timed on the same captured stats input,
    #16 and #4 on the same captured seed input, as in step 4, beside the
    one bound of each pair; the labels agree with the default path's
    scan 0 of step 10 (cross agreement ≥ 0.99).
@@ -179,6 +183,9 @@ ROWS_ARG = {"stats_sweep": 1, "seed_sweep": 2, "label_sweep": 4,
             "table_lookup_cols": 0}
 # the seeded table of the #10 check: f32[cap, LOOKUP_COLS]
 LOOKUP_COLS = 3
+# balls of #16's full walk, on every sixth row of its held inputs: the
+# 1e29 cut, above it, +inf and NaN (and a negative one)
+FULL_WALK_BALLS = (1e29, 5e29, 2e30, float("inf"), float("nan"), -1.0)
 
 
 def mxu_config(**kw):
@@ -559,6 +566,70 @@ def lookup_cols_calls(torch, calls, seed):
     return out
 
 
+def full_walk_calls(torch, calls):
+    """#16's captured inputs with the balls of ``FULL_WALK_BALLS`` on every
+    sixth row: the kernel walks all C candidates for those rows."""
+    out = []
+    for n, (pos, nrm, mask, dk), kw in calls:
+        rows = torch.arange(n, device=dk.device)
+        balls = torch.tensor(FULL_WALK_BALLS, device=dk.device)
+        dk = torch.where(rows % 6 == 0, balls[(rows // 6) % len(balls)], dk)
+        out.append((n, (pos, nrm, mask, dk), kw))
+    return out
+
+
+def hold_full_walk(torch, path, calls, cuda_fn, plain_fn):
+    """#16 held bit for bit on its captured calls with full-walk balls."""
+    err = hold_calls(torch, "seed_mxu", f"{path}, full walk",
+                     full_walk_calls(torch, calls), cuda_fn, plain_fn)
+    print(f"seed_mxu ({path} path) with balls {FULL_WALK_BALLS} on every "
+          f"sixth row: {len(calls)} calls, kernel == plain on each")
+    return err
+
+
+def compact_phases(torch, calls, card, where, reps=20):
+    """#2's card ms by launch (its six phases and the counters' memset)
+    over one pass of the captured calls, from ``torch.profiler``, with
+    each call's live slot bound.  Printed; returns the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from buildingsegment_tpu_torch import kernels
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for _n, args, kw in calls:
+                kernels.compact_sweep_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    phases = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and "CUDA" in str(e.device_type):
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split("<")[0].replace("void ", "").strip()
+            phases[name] = phases.get(name, 0.0) + us / 1e3 / reps
+    bounds = [int(args[6]) for _n, args, _kw in calls]
+    # the pair phase tests bound² ordered pairs, the hop phase each valid
+    # (row, window candidate) pair, ~40 f32 operations each
+    pair_ops = sum(b * b * 40 for b in bounds)
+    hop_ops = sum(window_pairs(torch, args[3], kw["w"]) * 40
+                  for _n, args, kw in calls)
+    rec = {"calls": len(calls), "rows": sorted({n for n, _a, _k in calls}),
+           "bounds": bounds, "card_ms_by_phase": phases or None,
+           "pairs_bound_ms": pair_ops / F32_OPS_PER_S * 1e3,
+           "hop_bound_ms": hop_ops / F32_OPS_PER_S * 1e3}
+    shown = (", ".join(f"{k} {v:.5f}" for k, v in sorted(
+        phases.items(), key=lambda kv: -kv[1])) if phases
+        else "not measured (the profiler recorded no device time)")
+    print(f"compact_sweep by phase ({where}: {len(calls)} calls, rows "
+          f"{rec['rows']}, live bounds {bounds}), card ms a run: {shown}; "
+          f"bounds a run: pairs {rec['pairs_bound_ms']:.6f} ms, hop "
+          f"{rec['hop_bound_ms']:.6f} ms (operations) ({card})")
+    return rec
+
+
 def cli_render(tmp, src):
     """The CLI's render with contours on the slice scene, and ``--batch``
     on a directory of two scans, as subprocesses on the card."""
@@ -660,6 +731,8 @@ def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches,
         print(f"warm-up run, render: calls "
               f"{ {k: len(v) for k, v in seen.items()} }")
         cols_calls += lookup_cols_calls(torch, seen["table_lookup"], 1)
+        phases = compact_phases(torch, seen["compact_sweep"], card,
+                                "config 5, four scans")
         for name in PATH_KERNELS["render"]:
             results[("render", name)] = hold_kernel(
                 torch, name, "render", seen.pop(name), cuda_fns[name],
@@ -772,7 +845,8 @@ def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches,
         "wall_s": wall, "mpts_per_s": total / wall / 1e6,
         "launches": launches["render"], "per_scan": per_scan,
         "raster_rel_err": err, "raster_tol": tol, "png_max_diff": png_diff,
-        "render_span_s": [min(spans), max(spans)], "card": card,
+        "render_span_s": [min(spans), max(spans)],
+        "compact_phases": phases, "card": card,
     }, outs[0].plane_idx
 
 
@@ -818,6 +892,9 @@ def mxu_full_phase(torch, np, hooks, cuda_fns, card, default_labels0):
         calls = seen.pop(name)
         hold_calls(torch, name, "mxu full size", calls, cuda_fns[name],
                    hooks[name][2])
+        if name == "seed_mxu":
+            hold_full_walk(torch, "mxu full size", calls, cuda_fns[name],
+                           hooks[name][2])
         summary[name] = block_vs_exact(torch, name, calls, cuda_fns, card,
                                        "mxu path, scan 0")
     print(f"mxu path on scan 0 ({len(pts)} points, capacity {cap}): "
@@ -938,11 +1015,17 @@ def main():
         cols_calls = lookup_cols_calls(
             torch, captured["default"]["table_lookup"], 0)
         results = {}
+        phases = {"slice_default": compact_phases(
+            torch, captured["default"]["compact_sweep"], card,
+            "default path")}
         for path, seen in captured.items():
             for name, calls in seen.items():
                 results[(path, name)] = hold_kernel(
                     torch, name, path, calls, cuda_fns[name], hooks[name][2],
                     card)
+            if "seed_mxu" in seen:
+                hold_full_walk(torch, path, seen["seed_mxu"],
+                               cuda_fns["seed_mxu"], hooks["seed_mxu"][2])
         mxu_pairs = {name: block_vs_exact(torch, name, captured["mxu"][name],
                                           cuda_fns, card, "mxu path")
                      for name in MXU_REPLACES}
@@ -1156,7 +1239,7 @@ def main():
                       "paths": summary, "stages_min_max_s": spread,
                       "config2": config2, "multiscan": multiscan,
                       "mxu_pairs": mxu_pairs, "mxu_full": mxu_full,
-                      "fold_kernels": fold}))
+                      "fold_kernels": fold, "compact_phases": phases}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
         path = MAIN_PATH[name]

@@ -182,33 +182,105 @@ def test_label_sweep_kernel_windows(scene, case, w):
         assert (k_new != args[4]).sum() > 100 and (k_best < mask.shape[0]).sum() > 50
 
 
-@pytest.mark.parametrize("anchor_gate", [True, False])
-def test_compact_sweep_kernel_matches_plain(scene, anchor_gate):
-    """Three chained sweeps from a singleton slot state: labels and
-    counters equal at every step (the per-slot sums run in the same
-    fixed order in both versions)."""
+# "scene": a fifth of the scene's rows live; "bound_B": exactly B live
+# slots, one row each (the pair phase's 128-row and 32-column tile edges,
+# one slot, lc); "coplanar": a flat grid whose 2,048 slots (random ids, 4
+# rows each) all lie on one plane, so pairs merge across every row tile
+_COMPACT_CASES = ("scene", "bound_1", "bound_127", "bound_128", "bound_129",
+                  "bound_700", "bound_2048", "coplanar")
+
+
+def _compact_problem(scene, case):
+    """(pos, nrm, mask, clab, bound) of one case, slots numbered in row
+    order (the grid's at random)."""
     pos, nrm, mask = scene
-    n, w, lc = mask.shape[0], 16, COMPACT_L
-    cn = canonicalize_normals(nrm)
+    n, lc, dev = mask.shape[0], COMPACT_L, pos.device
     g = torch.Generator(device="cpu").manual_seed(4)
-    live = mask & (torch.rand(n, generator=g).to(pos.device) < 0.2)
+    if case == "coplanar":
+        k = torch.arange(4 * lc)
+        pos = torch.stack([(k % 128) * 100.0, (k // 128) * 100.0,
+                           torch.zeros(4 * lc)], 1).to(dev)
+        nrm = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(4 * lc, 3)
+        nrm = nrm.contiguous()
+        mask = torch.ones(4 * lc, dtype=torch.bool, device=dev)
+        slot = torch.randperm(lc, generator=g).repeat_interleave(4)
+        return pos, nrm, mask, slot.to(torch.int32).to(dev), lc
+    if case == "scene":
+        live = mask & (torch.rand(n, generator=g).to(dev) < 0.2)
+    else:
+        rows = torch.nonzero(mask).flatten().cpu()
+        pick = rows[torch.randperm(rows.shape[0], generator=g)]
+        live = torch.zeros(n, dtype=torch.bool)
+        live[pick[:int(case[6:])]] = True
+        live = live.to(dev)
     clab = torch.where(live, torch.cumsum(live, 0) - 1, lc).to(torch.int32)
-    bound = int(live.sum())
+    return pos, nrm, mask, clab, int(live.sum())
+
+
+@pytest.mark.parametrize("case", _COMPACT_CASES)
+@pytest.mark.parametrize("anchor_gate", [True, False])
+def test_compact_sweep_kernel_matches_plain(scene, anchor_gate, case):
+    """Three chained sweeps from a singleton slot state: labels, counters
+    and the per-slot sums of the stats phase (``stats_out``) equal at
+    every step (the sums run in the same fixed order in both versions,
+    the pair and jump phases are integer mins)."""
+    pos, nrm, mask, clab, bound = _compact_problem(scene, case)
+    w, lc = 16, COMPACT_L
     assert bound <= lc
+    if case.startswith("bound_"):
+        assert bound == int(case[6:])
+    cn = canonicalize_normals(nrm)
+    live = clab < lc
     anchor = torch.zeros((lc, 3), device=pos.device)
     anchor[clab[live].long()] = cn[live]
-    cols = lambda t: [t[:, d].contiguous() for d in range(3)]
+    thac = 0.95 if anchor_gate else 0.0
     kw = dict(lc=lc, w=w, th_thickness=TH, th_normal_cos=CTH,
-              edge_gate2=EDGE ** 2, root_gate=EDGE,
-              th_anchor_cos=0.95 if anchor_gate else 0.0,
+              edge_gate2=EDGE ** 2, root_gate=EDGE, th_anchor_cos=thac,
               anchor_gate=anchor_gate)
-    for _ in range(3):
-        args = (cols(pos), cols(nrm), cols(cn), mask, clab, anchor, bound)
-        k_lab, k_cnt = kernels.compact_sweep_cuda(*args, **kw)
+    stats = torch.empty((lc, 16), dtype=torch.float32, device=pos.device)
+    for step in range(3):
+        args = (_cols(pos), _cols(nrm), _cols(cn), mask, clab, anchor, bound)
+        k_lab, k_cnt = kernels.compact_sweep_cuda(*args, stats_out=stats,
+                                                  **kw)
         p_lab, p_cnt = compact_sweep_reference(*args, **kw)
-        assert torch.equal(k_lab, p_lab)
-        assert torch.equal(k_cnt, p_cnt) and int(k_cnt[0]) > 0
+        want = compact_slot_stats(_cols(pos), _cols(cn), clab, anchor, bound,
+                                  lc=lc, w=w, th_anchor_cos=thac,
+                                  anchor_gate=anchor_gate)
+        assert torch.equal(stats, want)
+        assert torch.equal(k_lab, p_lab) and torch.equal(k_cnt, p_cnt)
+        if step == 0 or case == "scene":
+            assert int(k_cnt[0]) > 0
+        if case == "coplanar" and step == 0:
+            # the pair tests merged slots far apart in id
+            assert int(k_cnt[1]) < lc - 128
         clab, bound = k_lab, min(int(k_cnt[1]) + 1, bound)
+
+
+@pytest.mark.parametrize("w", [1, 48, 2048, 2049])
+def test_compact_sweep_kernel_windows(scene, w):
+    """#2 at other windows than the path's 16: the hop tile with w taken
+    at run time (1, 48, its widest, 2,048) and the one-thread-a-row hop
+    past it (2,049); labels, counters and per-slot sums equal the plain
+    version's bit for bit."""
+    pos, nrm, mask, clab, bound = _compact_problem(scene, "scene")
+    lc = COMPACT_L
+    cn = canonicalize_normals(nrm)
+    live = clab < lc
+    anchor = torch.zeros((lc, 3), device=pos.device)
+    anchor[clab[live].long()] = cn[live]
+    kw = dict(lc=lc, w=w, th_thickness=TH, th_normal_cos=CTH,
+              edge_gate2=EDGE ** 2, root_gate=EDGE, th_anchor_cos=0.95,
+              anchor_gate=True)
+    args = (_cols(pos), _cols(nrm), _cols(cn), mask, clab, anchor, bound)
+    stats = torch.empty((lc, 16), dtype=torch.float32, device=pos.device)
+    k_lab, k_cnt = kernels.compact_sweep_cuda(*args, stats_out=stats, **kw)
+    p_lab, p_cnt = compact_sweep_reference(*args, **kw)
+    want = compact_slot_stats(_cols(pos), _cols(cn), clab, anchor, bound,
+                              lc=lc, w=w, th_anchor_cos=0.95,
+                              anchor_gate=True)
+    assert torch.equal(stats, want)
+    assert torch.equal(k_lab, p_lab) and torch.equal(k_cnt, p_cnt)
+    assert int(k_cnt[0]) > 0
 
 
 def test_kernel_wrappers_reject_bad_inputs(scene):
@@ -406,13 +478,20 @@ def _sparse_cloud(cuda):
     # passes and a second fold in the query's thread (2w > 128)
     ("scene", 15, 48, 1e6, 50), ("scene", 15, 64, 1e6, 50),
     ("scene", 15, 65, 1e6, 50), ("scene", 40, 100, 1e6, 150),
+    # every coordinate above the origin's 3e7 fill
+    ("far", 15, 16, 300.0, 20),
 ])
 def test_stats_mxu_kernel_matches_plain(scene, case, k, w, radius, max_nn):
     """#15 against its plain version, bit for bit, on the card and on the
-    CPU: the building scene (Morton-sorted, padded), and the sparse cloud
+    CPU: the building scene (Morton-sorted, padded), the scene moved 1e8
+    along each axis (blocks whose candidates are all valid take the least
+    coordinate as their origin, not the 3e7 fill), and the sparse cloud
     with masked rows and empty blocks."""
     if case == "scene":
         pos, _nrm, mask = scene
+    elif case == "far":
+        pos, _nrm, mask = scene
+        pos = pos + 1e8
     else:
         pos, _nrm, mask, _dk = _sparse_cloud(scene[0].device)
     kw = dict(k=k, w=w, radius=radius, max_nn=max_nn)
@@ -451,26 +530,47 @@ def test_stats_mxu_kernel_limits(scene):
             kernels.stats_mxu_cuda(_cols(pos), mask, **kw)
 
 
-@pytest.mark.parametrize("case,signed", [("scene", False), ("scene", True),
-                                         ("sparse", False)])
-def test_seed_mxu_kernel_matches_plain(scene, case, signed):
+# balls that take the full walk: the 1e29 cut itself, above it, +inf
+# and NaN, beside negative ones, on every sixth row
+_FULL_WALK_BALLS = (float(np.float32(1e29)), 5e29, 2e30, float("inf"),
+                    float("nan"), -1.0)
+
+
+@pytest.mark.parametrize("case,signed,w", [
+    ("scene", False, 16), ("scene", True, 16), ("sparse", False, 16),
+    ("scene", False, 1), ("scene", False, 48), ("scene", True, 100),
+    ("full_walk", False, 16), ("full_walk", True, 48), ("huge", False, 16),
+])
+def test_seed_mxu_kernel_matches_plain(scene, case, signed, w):
     """#16 against its plain version, bit for bit, on the card and on the
-    CPU: the building scene with its block-form seed balls, and the
-    sparse cloud with random normals and balls."""
-    if case == "scene":
+    CPU: the building scene with its block-form seed balls at w = 1, 16,
+    48 and 100; the sparse cloud with random normals and balls; the scene
+    with balls at or above 1e29, +inf and NaN mixed in (the full walk);
+    the scene 1e12 times larger, its balls 1e24 times and the band 1e12
+    times (staged |c−o|² above the window walk's limit: the blocks' full
+    walk)."""
+    if case == "sparse":
+        pos, nrm, mask, dk = _sparse_cloud(scene[0].device)
+    else:
         pos, nrm, mask = scene
         dk = stats_mxu_reference(_cols(pos), mask, k=15, w=48, radius=100.0,
                                  max_nn=50)[0]
-    else:
-        pos, nrm, mask, dk = _sparse_cloud(scene[0].device)
-    kw = dict(w=16, th_thickness=TH, th_normal_cos=CTH, signed=signed)
+    if case == "full_walk":
+        balls = torch.tensor(_FULL_WALK_BALLS, device=dk.device)
+        rows = torch.arange(dk.shape[0], device=dk.device)
+        pick = rows % 6 == 0
+        dk = torch.where(pick, balls[(rows // 6) % len(balls)], dk)
+    th = TH
+    if case == "huge":
+        pos, dk, th = pos * 1e12, dk * 1e24, TH * 1e12
+    kw = dict(w=w, th_thickness=th, th_normal_cos=CTH, signed=signed)
     before = kernels.launch_counts["seed_mxu"]
     got = kernels.seed_mxu_cuda(_cols(pos), _cols(nrm), mask, dk, **kw)
     assert kernels.launch_counts["seed_mxu"] == before + 1
     ref = seed_sweep_mxu_reference(_cols(pos), _cols(nrm), mask, dk, **kw)
     on_cpu = seed_sweep_mxu_reference(_cols(pos.cpu()), _cols(nrm.cpu()),
                                       mask.cpu(), dk.cpu(), **kw)
-    assert got.sum() > 30 and (mask & ~got).sum() > 100
+    assert got.sum() > 30 and (mask & ~got).sum() > (100 if w > 1 else 10)
     assert torch.equal(got, ref) and torch.equal(got.cpu(), on_cpu)
 
 

@@ -5,7 +5,9 @@ the block-form variant path end to end.
 port's kernel) is held against ``seed_sweep_mxu`` (``_seed_mxu_kernel``)
 run in interpret mode on the CPU, in the regimes of the JAX package's
 own test (tests/test_stats_mxu.py): bit for bit at small span (signed
-and unsigned), fewer than 0.1% of the flags different at building span.
+and unsigned, also with balls at or above 1e29 and +inf, which the CUDA
+kernel walks over all candidates), fewer than 0.1% of the flags
+different at building span.
 
 The routing of ``seg_seed_mode``: "mxu" takes the block form, None,
 "pair" and "sym" the exact sweep's bits, anything else raises.
@@ -93,6 +95,27 @@ def test_seed_mxu_small_span_bit_exact(signed):
     want, got = _both(spos, smask, nrm, dk, w=16, th_thickness=30.0,
                       th_normal_cos=CTH, signed=signed)
     assert want.sum() > 10 and (smask & ~want).sum() > 100
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_seed_mxu_small_span_large_balls(signed):
+    """Balls at the 1e29 cut, above it and +inf on every fifth row, mixed
+    into the small-span cloud: the CUDA kernel walks all C candidates for
+    these rows (and only the window slots for the others); the plain
+    version equals the Pallas kernel bit for bit on both kinds."""
+    rng = np.random.default_rng(5)
+    spos, smask = _padded(rng.integers(0, 250, (1500, 3)).astype(np.int32))
+    nrm = rng.normal(size=(CAP, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    dk = rng.uniform(100.0, 4000.0, CAP).astype(np.float32)
+    big = np.array([1e29, 5e29, 2e30, np.inf], np.float32)
+    dk[::5] = big[np.arange(len(dk[::5])) % len(big)]
+    want, got = _both(spos, smask, nrm, dk, w=16, th_thickness=30.0,
+                      th_normal_cos=CTH, signed=signed)
+    assert want.sum() > 10 and (smask & ~want).sum() > 100
+    # most large-ball rows meet a candidate that fails the gate
+    assert (smask & ~want)[::5].sum() > smask[::5].sum() // 2
     np.testing.assert_array_equal(got, want)
 
 

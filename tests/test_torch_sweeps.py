@@ -169,3 +169,52 @@ def test_compact_sweep_matches_pallas_kernel(scene, anchor_gate):
         top = int(np.where(j_lab < lc, j_lab, 0).max())
         assert int(counters[1]) == top
         clab, bound = j_lab, min(top + 1, bound)
+
+
+def test_compact_sweep_matches_pallas_kernel_wide_bound(scene):
+    """A live bound of 700 slots (one row each): the JAX kernel's pair
+    tests take two 512-column blocks and the CUDA kernel's 128-row tiles
+    end inside the table; two chained sweeps, labels and change counts
+    exact."""
+    pos, nrm, cnrm, mask = scene
+    n, w, lc, bound = len(mask), 8, COMPACT_L, 700
+    eg2 = EDGE ** 2
+    rng = np.random.default_rng(6)
+    live = np.zeros(n, bool)
+    live[rng.permutation(np.flatnonzero(mask))[:bound]] = True
+    assert live.sum() == bound
+    clab = np.where(live, np.cumsum(live) - 1, lc).astype(np.int32)
+    anchor = np.zeros((lc, 3), np.float32)
+    anchor[clab[live]] = cnrm[live]
+    ctile = -(-n // 128) * 128
+    spine = make_slab(
+        [jnp.asarray(c) for c in (
+            pos[:, 0], pos[:, 1], pos[:, 2], nrm[:, 0], nrm[:, 1], nrm[:, 2],
+            cnrm[:, 0], cnrm[:, 1], cnrm[:, 2], mask.astype(np.float32))],
+        [-3e7, -3e7, -3e7] + [0.0] * 7, w, ctile, rows_out=16,
+    )
+    anchor8 = jnp.asarray(
+        np.concatenate([anchor.T, np.zeros((5, lc), np.float32)], 0)
+    )
+    tpos = [_t(pos[:, d]) for d in range(3)]
+    tnrm = [_t(nrm[:, d]) for d in range(3)]
+    tcn = [_t(cnrm[:, d]) for d in range(3)]
+    for _ in range(2):
+        dyn = make_dyn_row(jnp.asarray(clab.astype(np.float32)), float(lc),
+                           w, ctile)
+        j_lab, j_cnt = jax_compact(
+            spine, dyn, anchor8, bound, n, w=w, tile=ctile, lc=lc,
+            th_thickness=TH, th_normal_cos=CTH, edge_gate2=eg2,
+            th_anchor_cos=0.95, anchor_gate=True, interpret=True,
+        )
+        j_lab = np.asarray(j_lab).astype(np.int32)
+        t_lab, counters = compact_sweep(
+            tpos, tnrm, tcn, _t(mask), _t(clab), _t(anchor), bound, lc=lc,
+            w=w, th_thickness=TH, th_normal_cos=CTH, edge_gate2=eg2,
+            root_gate=EDGE, th_anchor_cos=0.95, anchor_gate=True,
+        )
+        np.testing.assert_array_equal(t_lab.numpy(), j_lab)
+        assert int(counters[0]) == int(j_cnt) > 0
+        top = int(np.where(j_lab < lc, j_lab, 0).max())
+        assert int(counters[1]) == top
+        clab, bound = j_lab, min(top + 1, bound)

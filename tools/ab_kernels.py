@@ -29,7 +29,9 @@ with CUDA events (one warm-up call, then ``--reps`` calls back to back:
 device's; ``host_ms``, the host's time to issue a call), then the same
 calls again under ``torch.profiler``: the
 device time of each CUDA kernel the wrapper launched, per call
-(``device_ms``, its sum ``device_ms_total``).  ``launch_floor_ms`` is
+(``device_ms``, its sum ``device_ms_total``).  For ``compact_sweep``
+(#2), ``by_call`` gives every captured call's row count, live slot
+bound and card ms by launch (its six phases and the counters' memset).  ``launch_floor_ms`` is
 the profiled device time of a near-empty kernel (a one-element
 ``add_``), the floor under every launch.  ``--host-split`` also times,
 on the host, the parts of the ``label_sweep``, ``seed_sweep`` and
@@ -677,6 +679,14 @@ def main():
                 r: sum(device_ms(torch, profile, activities, fn,
                                  *calls[rows.index(r)], args.reps).values())
                 for r in sorted(set(rows)) if r != max(rows)}
+            if name == "compact_sweep":
+                # #2 by phase: each captured call's live bound and the card
+                # ms of each of its launches
+                rec[name]["by_call"] = [
+                    {"rows": a_[4].shape[0], "bound": int(a_[6]),
+                     "device_ms": device_ms(torch, profile, activities, fn,
+                                            a_, kw_, args.reps)}
+                    for a_, kw_ in calls]
             if name == "plane_sums":
                 rec[name]["fold_chain_rows"] = fold_chain_rows(
                     torch, a[0], a[2], kw["table_cap"])
