@@ -14,15 +14,18 @@ Usage:
         --render-dir renders --extract-contours
     python -m buildingsegment_tpu_torch.cli --batch IN_DIR OUT_DIR \\
         [--render-dir renders] [--json-summary]
+    python -m buildingsegment_tpu_torch.cli -a=scan.ply -s=out.ply \\
+        --trace traces --dump-stages stages.npz
+    python -m buildingsegment_tpu_torch.cli -a=small.ply -s=out.ply --golden
 
-The flags of paths the port does not have yet (the golden oracle,
-tracing, stage dumps) are accepted by the parser and exit with code 2
-naming their ROADMAP.md item.
+As in the JAX package, ``--batch`` runs before and without the other
+single-scan flags, and ``--golden`` replaces the device pipeline.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -31,15 +34,6 @@ import sys
 from buildingsegment_tpu_torch.config import PipelineConfig
 
 __all__ = ["main", "parse_args"]
-
-#: flag → the ROADMAP.md item (Queue B, "Next slices") that ports it
-_NOT_PORTED = {
-    "dump_stages": "--dump-stages: 'Bench and profiling' (dump_stages)",
-    "trace": "--trace: 'Bench and profiling' (a torch.profiler trace)",
-    "golden": "--golden: 'Bench and profiling' (the golden oracle, "
-              "seg/golden.py)",
-}
-
 
 def parse_args(argv):
     """Split reference-style ``-x=path`` args from ``--flag`` extensions.
@@ -76,8 +70,13 @@ def parse_args(argv):
     p.add_argument("--th-thickness", type=float, default=300.0)
     p.add_argument("--th-point-count", type=int, default=400)
     p.add_argument("--th-normal-cos", type=float, default=0.88)
-    p.add_argument("--golden", action="store_true",
-                   help="host oracle of the reference (not ported)")
+    p.add_argument(
+        "--golden",
+        action="store_true",
+        help="run the host oracle of the reference's sequential region "
+        "growing (seg/golden.py) on the device's kNN and normals (small "
+        "scans)",
+    )
     p.add_argument(
         "--signed-normals",
         action="store_true",
@@ -114,7 +113,12 @@ def parse_args(argv):
         help="with --render-dir: also extract building contours from the "
         "density render and extrude them to csa.obj (TMC3.cpp:223-226)",
     )
-    p.add_argument("--trace", metavar="DIR", help="device trace (not ported)")
+    p.add_argument(
+        "--trace",
+        metavar="DIR",
+        help="write a torch.profiler trace of the run (host spans and the "
+        "card's kernels) to DIR/trace.json (view in Perfetto)",
+    )
     p.add_argument(
         "--json-summary", action="store_true", help="print a JSON run summary"
     )
@@ -124,8 +128,12 @@ def parse_args(argv):
         metavar=("IN_DIR", "OUT_DIR"),
         help="multi-scan mode: segment every .ply in IN_DIR into OUT_DIR",
     )
-    p.add_argument("--dump-stages", metavar="NPZ",
-                   help="stage outputs as .npz (not ported)")
+    p.add_argument(
+        "--dump-stages",
+        metavar="NPZ",
+        help="write stage outputs (labels, plane table) as .npz for "
+        "debugging",
+    )
     args = p.parse_args(rest)
 
     input_path = ref_style.get("a") or args.input
@@ -138,11 +146,6 @@ def main(argv=None, *, device="cuda") -> int:
     unless a caller, such as a test, asks for "cpu")."""
     argv = sys.argv[1:] if argv is None else argv
     args, input_path, output_path = parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            print(f"error: {item} is a later slice of the port "
-                  "(ROADMAP.md)", file=sys.stderr)
-            return 2
     if not args.batch and (not input_path or not output_path):
         print("usage: buildingsegment_tpu_torch -a=<in.ply> -s=<out.ply> "
               "[--flags]\n"
@@ -163,7 +166,11 @@ def main(argv=None, *, device="cuda") -> int:
         dedup_bits=args.dedup_bits,
     )
 
-    from buildingsegment_tpu_torch.pipeline import segment_file, segment_files
+    from buildingsegment_tpu_torch.pipeline import (
+        dump_stages,
+        segment_file,
+        segment_files,
+    )
 
     if args.batch:
         in_dir, out_dir = args.batch
@@ -192,12 +199,25 @@ def main(argv=None, *, device="cuda") -> int:
             }))
         return 0
 
+    if args.golden:
+        return _run_golden(input_path, output_path, config, device)
+
+    trace_cm = contextlib.nullcontext()
+    if args.trace:
+        from buildingsegment_tpu_torch.profiling import trace
+
+        trace_cm = trace(args.trace, device=device)
     try:
-        out = segment_file(input_path, output_path, config, device=device,
-                           signed_normals=args.signed_normals)
+        with trace_cm:
+            out = segment_file(input_path, output_path, config,
+                               device=device,
+                               signed_normals=args.signed_normals)
     except FileNotFoundError:
         print(f"error: cannot open {input_path}", file=sys.stderr)
         return 1
+
+    if args.dump_stages:
+        dump_stages(out, args.dump_stages, device=device)
 
     if args.render_dir:
         from buildingsegment_tpu_torch.raster.contours import (
@@ -233,6 +253,63 @@ def main(argv=None, *, device="cuda") -> int:
             "timings": out.timings,
             "diagnostics": out.diagnostics,
         }))
+    return 0
+
+
+def _run_golden(input_path, output_path, config, device) -> int:
+    """The reference's semantics end to end on the host oracle: exact kNN
+    and normals on ``device``, then ``golden_segment`` (sequential region
+    growing with every quirk) and the MSVC ``rand()`` colors.  O(n·k)
+    Python: small scans."""
+    import numpy as np
+    import torch
+
+    from buildingsegment_tpu_torch.core.pointset import PointBatch
+    from buildingsegment_tpu_torch.io.ply import (
+        HostPointCloud, read_ply, write_ply,
+    )
+    from buildingsegment_tpu_torch.ops.knn import knn
+    from buildingsegment_tpu_torch.ops.normals import estimate_normals
+    from buildingsegment_tpu_torch.seg.colorize import msvc_rand_colors
+    from buildingsegment_tpu_torch.seg.golden import golden_segment
+
+    try:
+        cloud = read_ply(input_path, position_scale=config.position_scale)
+    except FileNotFoundError:
+        print(f"error: cannot open {input_path}", file=sys.stderr)
+        return 1
+    pts = cloud.positions - cloud.positions.min(axis=0)
+    n = len(pts)
+    batch = PointBatch.upload(pts, config.padded_count(n),
+                              device=torch.device(device))
+    k_search = max(config.knn_k, config.normal_max_nn)
+    idx, d = knn(batch.positions, batch.mask, k=k_search)
+    normals, _ = estimate_normals(
+        batch.positions, batch.mask, idx, d,
+        radius=config.normal_radius, max_nn=config.normal_max_nn,
+    )
+    _plane_idx, planes = golden_segment(
+        pts,
+        normals[:n].cpu().numpy().astype(np.float64),
+        idx[:n, : config.knn_k].cpu().numpy(),
+        k=config.knn_k,
+        th_thickness=config.th_thickness,
+        th_point_count=config.th_point_count,
+        th_normal_cos=config.th_normal_cos,
+    )
+    colors = np.zeros((n, 3), np.uint16)
+    table = msvc_rand_colors(len(planes), config.color_low,
+                             config.color_range)
+    for p, col in zip(planes, table):
+        colors[np.asarray(p.point_idx)] = col
+    write_ply(
+        HostPointCloud(positions=pts.astype(np.int32), colors=colors),
+        output_path,
+        position_scale=config.output_scale,
+        ascii=not config.output_binary,
+    )
+    print(f"{n} points → {len(planes)} planes (golden oracle) → "
+          f"{output_path}")
     return 0
 
 

@@ -1,9 +1,11 @@
 """Bounding-box shift and the host-side quantization helpers.
 
 Port of ``buildingsegment_tpu/core/quantize.py``.  ``shift_to_origin``
-is the device op (tmc3/TMC3.cpp:58-72, "shift to positive"); the numpy
-helpers feed the pipeline's static hints and the opt-in dedup.  They are
-copies, not imports: the JAX module imports jax at the top.
+is the device op (tmc3/TMC3.cpp:58-72, "shift to positive");
+``quantize_positions`` and ``dedup_quantized`` are the device forms of
+the PLY quantization and the container dedup; the numpy helpers feed
+the pipeline's static hints and the opt-in dedup.  They are copies, not
+imports: the JAX module imports jax at the top.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 __all__ = [
     "compute_bbox",
     "shift_to_origin",
+    "quantize_positions",
+    "dedup_quantized",
     "dedup_keep_mask",
     "estimate_spacing_mm",
     "spacing_bucket_mm",
@@ -48,6 +52,43 @@ def shift_to_origin(
     lo, hi = compute_bbox(positions, mask)
     shifted = torch.where(mask[:, None], positions - lo[None, :], positions)
     return shifted, lo, hi
+
+
+def quantize_positions(raw: torch.Tensor, scale: float) -> torch.Tensor:
+    """float[N, 3] × scale, truncated toward zero → int32[N, 3] (C++
+    double→int32 conversion, tmc3/ply.cpp:407-409).  float64 input is
+    scaled in float64, anything else in float32."""
+    dtype = torch.float64 if raw.dtype == torch.float64 else torch.float32
+    return torch.trunc(raw.to(dtype) * scale).to(torch.int32)
+
+
+def dedup_quantized(
+    positions: torch.Tensor, mask: torch.Tensor, drop_bits: int = 0
+) -> torch.Tensor:
+    """Validity mask with later duplicates cleared, positions compared
+    after dropping ``drop_bits`` low bits; the FIRST occurrence in index
+    order survives (tmc3/PCCPointSet.h:457-472).
+
+    The key is the JAX package's: the two 30-bit Morton words of the
+    clamped (≥ 0) coordinates, so coordinates that alias in those words
+    (≥ 2^20 after the drop) alias here too.  One stable sort of the
+    int64 key ``hi << 30 | lo`` (masked rows carry hi = 2^31 − 1 and sort
+    last) gives JAX's two-pass order.
+    """
+    from buildingsegment_tpu_torch.core.morton import morton_encode
+
+    q = torch.where(mask[:, None], positions >> drop_bits, -1)
+    q = torch.clamp_min(q, 0)
+    lo = morton_encode(q, shift=0).to(torch.int64)
+    hi = torch.where(mask, morton_encode(q, shift=10), _I32_MAX)
+    order = torch.sort((hi.to(torch.int64) << 30) | lo, stable=True).indices
+    s_lo, s_hi, s_mask = lo[order], hi[order], mask[order]
+    same_as_prev = torch.zeros_like(s_mask)
+    same_as_prev[1:] = ((s_lo[1:] == s_lo[:-1]) & (s_hi[1:] == s_hi[:-1])
+                        & s_mask[1:])
+    keep = torch.zeros_like(mask)
+    keep[order] = s_mask & ~same_as_prev
+    return keep
 
 
 def dedup_keep_mask(positions: np.ndarray, drop_bits: int = 0) -> np.ndarray:

@@ -1,10 +1,12 @@
 """PLY codec — vectorized numpy reader/writer, reference-exact semantics.
 
-The port's copy of ``buildingsegment_tpu/io/ply.py`` with the numpy
-codec only: the JAX package's optional native C++ codec is not carried
-over, so nothing here needs a build step (binary bodies decode and
-encode through one structured numpy array; PERF.md records what the
-read and write cost on a 222,828-point scan).
+The port's copy of ``buildingsegment_tpu/io/ply.py``.  ``read_ply`` and
+binary ``write_ply`` go through the native C++ codec
+(``native/binding.py``, built with g++ at first use) where a compiler
+exists, as in the JAX package; the numpy codec below
+(``read_ply_bytes``, ``write_ply_bytes``: binary bodies through one
+structured numpy array) is the plain version, byte for byte the same
+output, and reads what the native codec declines.
 
 Re-implements the behavior of the reference's stream parser/serializer
 (tmc3/ply.cpp:88-504) with numpy bulk decoding instead of a per-point
@@ -115,7 +117,15 @@ def read_ply(
     position_scale: float = 1.0,
     position_names: tuple = ("x", "y", "z"),
 ) -> HostPointCloud:
-    """Read a PLY file with reference-exact mapping semantics."""
+    """Read a PLY file with reference-exact mapping semantics: the native
+    codec for the default x/y/z names, the numpy codec for other names
+    and for what the native codec declines."""
+    if position_names == ("x", "y", "z"):
+        from buildingsegment_tpu_torch.native.binding import read_ply_native
+
+        out = read_ply_native(path, position_scale)
+        if out is not None:
+            return out
     with open(path, "rb") as f:
         data = f.read()
     return read_ply_bytes(data, position_scale, position_names)
@@ -374,7 +384,13 @@ def write_ply(
     ascii: bool = False,
     position_names: tuple = ("x", "y", "z"),
 ) -> None:
-    """Write a PLY file with the reference's exact header/body layout."""
+    """Write a PLY file with the reference's exact header/body layout;
+    binary x/y/z clouds through the native codec."""
+    if not ascii and position_names == ("x", "y", "z"):
+        from buildingsegment_tpu_torch.native.binding import write_ply_native
+
+        if write_ply_native(cloud, path, position_scale, position_offset):
+            return
     with open(path, "wb") as f:
         f.write(
             write_ply_bytes(

@@ -4,10 +4,11 @@ The port's copy of ``buildingsegment_tpu/io/png.py``.  The reference
 vendors stb_image_write and calls only ``stbi_write_png``
 (tmc3/TMC3.cpp:98,108,119) to dump three RGB rasters; the encoder here
 emits the format directly: signature, IHDR, one zlib IDAT of filter-0
-scanlines, IEND.  The decoder keeps only the numpy defilter: the JAX
-module's native defilter lives in its prebuilt C++ library, which the
-port does not load.  Our own PNGs use filter 0 only, so re-reading them
-(the contour stage) never reaches the per-byte Average/Paeth loop.
+scanlines, IEND.  The decoder defilters through the native codec
+(``native/binding.py``) where it is built, as the JAX module does, and
+else through :func:`defilter_numpy`, its plain version (our own PNGs use
+filter 0 only, so re-reading them never reaches its per-byte
+Average/Paeth loop).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["write_png", "encode_png", "read_png"]
+__all__ = ["write_png", "encode_png", "read_png", "defilter_numpy"]
 
 
 def _chunk(tag: bytes, payload: bytes) -> bytes:
@@ -100,6 +101,22 @@ def read_png(path: str) -> np.ndarray:
     if bad.size:
         raise ValueError(f"unsupported filter {int(bad[0])}")
 
+    from buildingsegment_tpu_torch.native.binding import png_defilter_native
+
+    out = png_defilter_native(raw, h, stride, c)
+    if out is not None:
+        return out.reshape(h, w, c)
+    return defilter_numpy(raw, h, w, c)
+
+
+def defilter_numpy(raw: bytes, h: int, w: int, c: int) -> np.ndarray:
+    """Undo the PNG scanline filters (0-4) of ``h`` rows of ``w`` pixels
+    of ``c`` bytes → uint8[h, w, c] (the plain version of the native
+    defilter)."""
+    stride = w * c
+    tags = np.frombuffer(raw, np.uint8)[: h * (stride + 1)].reshape(
+        h, stride + 1
+    )[:, 0]
     out = np.zeros((h, stride), dtype=np.uint8)
     prev = np.zeros(stride, dtype=np.uint8)
     for y in range(h):

@@ -1,16 +1,19 @@
 """Exact k-nearest-neighbour graphs: the Morton-window seed pass and the
 tiled brute force.
 
-Port of ``knn_window_sorted``, ``_DUAL_SHIFT`` and ``knn`` from
-``buildingsegment_tpu/ops/knn.py`` (the replacement for the reference's
-Open3D ``KDTreeFlann::SearchKNN`` loop, tmc3/my_function.h:71-78).  As in
-the reference, slot 0 of each list is the query itself; padded rows
-never appear as neighbours of valid rows and their own lists are
-all-self.
+Port of ``knn_window_sorted``, ``knn_window``, ``window_offsets``,
+``_DUAL_SHIFT`` and ``knn`` from ``buildingsegment_tpu/ops/knn.py`` (the
+replacement for the reference's Open3D ``KDTreeFlann::SearchKNN`` loop,
+tmc3/my_function.h:71-78).  As in the reference, slot 0 of each list is
+the query itself; padded rows never appear as neighbours of valid rows
+and their own lists are all-self.
 
 ``knn_window_sorted`` ranks the ±window candidates of an already
 Morton-sorted cloud (the seeds and the τ bound of the exact kernel,
-``ops/pallas_knn.py``).  ``knn`` is the brute force that
+``ops/pallas_knn.py``).  ``knn_window`` is the approximate kNN of any
+cloud: the window search along its Morton order, unioned with a second
+search along the Morton order of a translated copy (``DUAL_SHIFT``), in
+the input frame; no pipeline path calls it.  ``knn`` is the brute force that
 ``knn_method="auto"`` runs at capacity ≤ 65,536: the |q|² − 2q·c + |c|²
 expansion in fp32 ranks a running top-(k−1+8) over candidate tiles, for
 every query at once, and an exact diff-form pass re-ranks those
@@ -22,8 +25,9 @@ TPU kernel, so it stays plain PyTorch on the card.
 
 Ties.  Coordinates are integer mm, so equal distances are common.  The
 window ranking sorts stably in slot order (JAX's ``top_k`` rule; slots
-run in index order), and the brute re-rank orders by (d², index), so a
-result does not depend on the device.  Both packages center on the
+run in index order), and the brute re-rank and the union of
+``knn_window`` order by (d², index), so a result does not depend on the
+device.  Both packages center on the
 masked mean before squaring; here the mean is taken in float64 and
 rounded once, to whole mm (:func:`masked_center`), so it does not depend
 on the order of summation (JAX's f32 sum does at 10^5 rows) and the
@@ -36,11 +40,14 @@ from typing import Tuple
 
 import torch
 
+from buildingsegment_tpu_torch.core.morton import morton_argsort
 from buildingsegment_tpu_torch.ops.fused import _windows, window_neighbors
 
 __all__ = [
     "knn",
+    "knn_window",
     "knn_window_sorted",
+    "window_offsets",
     "masked_center",
     "order_key",
     "split_key",
@@ -85,6 +92,13 @@ def split_key(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return d, (key & 0xFFFFFFFF).to(torch.int32)
 
 
+def window_offsets(window: int, device="cpu") -> torch.Tensor:
+    """Candidate offsets [−W..−1, 1..W] (self excluded), int32[2W]."""
+    return torch.cat([torch.arange(-window, 0, device=device),
+                      torch.arange(1, window + 1, device=device)]).to(
+                          torch.int32)
+
+
 def knn_window_sorted(
     spos: torch.Tensor,
     smask: torch.Tensor,
@@ -126,6 +140,88 @@ def knn_window_sorted(
         nb_d[r0:r1] = srt[:, : k - 1]
         arg[r0:r1] = sarg[:, : k - 1]
     return window_neighbors(nb_d, arg, smask, window)
+
+
+def knn_window(
+    positions: torch.Tensor,
+    mask: torch.Tensor,
+    k: int,
+    *,
+    window: int = 32,
+    presorted: bool = False,
+    dual: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate kNN by ±window searches in Morton order.
+
+    Args:
+        positions: int32[N, 3] (non-negative; the pipeline shifts the
+            cloud to the origin).
+        mask: bool[N].
+        k: neighbours per point INCLUDING self at slot 0.
+        window: half-width of each search.
+        presorted: the input is Morton-sorted already; the first search
+            runs in place and the result stays in that frame.
+        dual: union a second search along the Morton order of the cloud
+            translated by :data:`DUAL_SHIFT` (the JAX package measured
+            recall 0.84 → 0.99 at W = 64).
+
+    Returns (indices int32[N, k] in the input frame, squared distances
+    f32[N, k]); slot 0 = self, then the nearest distinct candidates of
+    both searches by (d², index); empty slots and masked rows → self at 0.
+    """
+    n = positions.shape[0]
+    dev = positions.device
+    self_idx = torch.arange(n, dtype=torch.int64, device=dev)
+
+    def one_pass(order):
+        """Window kNN along ``order``, ids mapped back to the input
+        frame."""
+        nb_sorted, nb_d = knn_window_sorted(
+            positions[order].float(), mask[order], k, window=window)
+        out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
+        out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
+        out_i[order] = order[nb_sorted.long()].to(torch.int32)
+        out_d[order] = nb_d
+        return out_i, out_d
+
+    if presorted:
+        i1, d1 = knn_window_sorted(positions.float(), mask, k, window=window)
+        if not dual:
+            return i1, d1
+    else:
+        i1, d1 = one_pass(morton_argsort(positions, mask))
+
+    if dual:
+        shift = torch.tensor(DUAL_SHIFT, dtype=positions.dtype, device=dev)
+        i2, d2 = one_pass(morton_argsort(positions + shift, mask))
+        # the union without slot 0 (self, restored below); an entry that
+        # fell back to self (too few valid peers in that search) must not
+        # enter it with d = 0
+        cand_i = torch.cat([i1[:, 1:], i2[:, 1:]], 1)
+        cand_d = torch.cat([d1[:, 1:], d2[:, 1:]], 1)
+        cand_d = torch.where(cand_i == self_idx[:, None], torch.inf, cand_d)
+        # a candidate both searches found has the same d² in each, so its
+        # copies sit side by side in (d², index) order: drop the later
+        key = torch.sort(order_key(cand_d, cand_i), dim=1).values
+        s_d, s_i = split_key(key)
+        dup = torch.zeros_like(s_i, dtype=torch.bool)
+        dup[:, 1:] = s_i[:, 1:] == s_i[:, :-1]
+        s_d = torch.where(dup, torch.inf, s_d)
+        nb_d, nb_i = split_key(torch.sort(order_key(s_d, s_i), dim=1)
+                               .values[:, : k - 1])
+        invalid = torch.isinf(nb_d)
+        self_i = self_idx[:, None].to(torch.int32)
+        nb_i = torch.where(invalid, self_i, nb_i)
+        nb_d = torch.where(invalid, 0.0, nb_d)
+        out_i = torch.cat([self_i, nb_i], 1)
+        out_d = torch.cat([torch.zeros_like(nb_d[:, :1]), nb_d], 1)
+    else:
+        out_i, out_d = i1, d1
+
+    out_i = torch.where(mask[:, None], out_i,
+                        self_idx[:, None].to(torch.int32))
+    out_d = torch.where(mask[:, None], out_d, 0.0)
+    return out_i, out_d
 
 
 def knn(

@@ -1,11 +1,12 @@
 """Normals from a kNN graph, the closed-form 3×3 eigensolve and normal
 canonicalization.
 
-Port of ``estimate_normals``, ``eigh3x3_smallest`` and
-``canonicalize_normals`` from ``buildingsegment_tpu/ops/normals.py``
-(the covariance-PCA normal of Open3D's ``EstimateNormals``,
-tmc3/my_function.h:63-64).  Same formulas in the same operation order;
-the trigonometric functions may differ from XLA's by a few ulps.
+Port of ``estimate_normals``, ``estimate_normals_window``,
+``eigh3x3_smallest`` and ``canonicalize_normals`` from
+``buildingsegment_tpu/ops/normals.py`` (the covariance-PCA normal of
+Open3D's ``EstimateNormals``, tmc3/my_function.h:63-64).  Same formulas
+in the same operation order; the trigonometric functions may differ from
+XLA's by a few ulps.
 """
 
 from __future__ import annotations
@@ -16,7 +17,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["estimate_normals", "eigh3x3_smallest", "canonicalize_normals"]
+__all__ = [
+    "estimate_normals",
+    "estimate_normals_window",
+    "eigh3x3_smallest",
+    "canonicalize_normals",
+]
+
+_PAD = -3e7
 
 
 def canonicalize_normals(normals: torch.Tensor) -> torch.Tensor:
@@ -163,3 +171,66 @@ def estimate_normals(
     )
     curvature = torch.where(cnt < 3.0, 0.0, curvature)
     return v, curvature
+
+
+def estimate_normals_window(
+    spos: torch.Tensor,
+    smask: torch.Tensor,
+    *,
+    radius: float = 100.0,
+    window: int = 64,
+    orient_z: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normals + curvature from the moments of the ±``window`` Morton
+    neighbours within ``radius`` (no kNN graph, no neighbour cap).
+
+    The neighbourhood is "window ∩ radius ball" rather than Open3D's
+    "50 nearest ∩ radius" (tmc3/my_function.h:63); on dense scans the
+    radius decides both.  On a CUDA tensor the moments come from the
+    stats sweep (#3, ``csrc/stats_sweep.cu``) in radius-only mode (k = 1:
+    no order statistic; no cap), as the JAX package runs its Pallas
+    kernel on the TPU; on a CPU tensor from JAX's XLA form, one pass per
+    offset −W..W (self included) adding the in-ball terms.  The two sum
+    in different orders, so they agree within f32 rounding.
+
+    Args:
+        spos: float32[N, 3] Morton-sorted positions.
+        smask: bool[N].
+        radius: neighbourhood radius (the positions' unit).
+
+    Returns (normals float32[N, 3] unit, +Z oriented when ``orient_z``;
+    curvature float32[N]).
+    """
+    from buildingsegment_tpu_torch.ops.fused import finish_normals
+
+    if smask.is_cuda:
+        from buildingsegment_tpu_torch.ops.stats_sweep import stats_sweep
+
+        pos = tuple(spos[:, d].float().contiguous() for d in range(3))
+        _dk, s0, s1, s2 = stats_sweep(pos, smask, k=1, w=window,
+                                      radius=radius, max_nn=None)
+        return finish_normals(s0, s1, s2, orient_z=orient_z)
+
+    n = spos.shape[0]
+    w = window
+    dev = spos.device
+    fill = torch.full((w, 3), _PAD, dtype=torch.float32, device=dev)
+    base = spos.float()
+    ppos = torch.cat([fill, base, fill])
+    off = torch.zeros(w, dtype=torch.bool, device=dev)
+    pmask = torch.cat([off, smask, off])
+    r2 = float(np.float32(radius) * np.float32(radius))
+    s0 = torch.zeros(n, dtype=torch.float32, device=dev)
+    s1 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    s2 = torch.zeros((n, 6), dtype=torch.float32, device=dev)
+    for slot in range(2 * w + 1):
+        d = ppos[slot:slot + n] - base  # centered on the query point
+        dist2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        uw = (pmask[slot:slot + n] & smask & (dist2 <= r2)).float()
+        s0 = s0 + uw
+        s1 = s1 + d * uw[:, None]
+        s2 = s2 + torch.stack([
+            d[:, 0] * d[:, 0], d[:, 1] * d[:, 1], d[:, 2] * d[:, 2],
+            d[:, 0] * d[:, 1], d[:, 0] * d[:, 2], d[:, 1] * d[:, 2],
+        ], 1) * uw[:, None]
+    return finish_normals(s0, s1, s2, orient_z=orient_z)

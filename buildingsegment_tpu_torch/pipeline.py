@@ -62,6 +62,7 @@ from buildingsegment_tpu_torch.ops.knn import knn
 from buildingsegment_tpu_torch.ops.normals import estimate_normals
 from buildingsegment_tpu_torch.ops.pallas_knn import knn_pallas
 from buildingsegment_tpu_torch.ops.stats_sweep import knn_normals_window_stats
+from buildingsegment_tpu_torch.profiling import annotate
 from buildingsegment_tpu_torch.raster.ortho import dispatch_ortho, finish_ortho
 from buildingsegment_tpu_torch.seg.coarse import segment_planes_multigrid
 from buildingsegment_tpu_torch.seg.colorize import colorize_planes
@@ -70,6 +71,7 @@ from buildingsegment_tpu_torch.utils.device import synchronize
 
 __all__ = [
     "PipelineOutput",
+    "dump_stages",
     "run_device_pipeline",
     "resolve_knn_method",
     "segment_cloud",
@@ -165,22 +167,24 @@ def run_device_pipeline(
     )
     dev = positions.device
     t0 = time.perf_counter()
-    shifted, lo, _hi = shift_to_origin(positions, mask)
-    spos, smask, order = morton_sort(shifted, mask, morton_small)
-    if use_stats:
-        # the multigrid solver consumes only the k-th-NN distance (the
-        # seed ball), never the sorted neighbour lists
-        dk, normals, curv = knn_normals_window_stats(
-            spos.float(), smask, k=knn_k, window=knn_window_size,
-            radius=normal_radius, max_nn=normal_max_nn,
-            rank_mode=stats_rank_mode,
-        )
-    else:
-        neigh_idx, neigh_d, normals, curv = knn_normals_window_sorted(
-            spos.float(), smask, k=max(knn_k, 16), window=knn_window_size,
-            radius=normal_radius, max_nn=normal_max_nn,
-        )
-    synchronize(dev)
+    with annotate("stage1"):
+        shifted, lo, _hi = shift_to_origin(positions, mask)
+        spos, smask, order = morton_sort(shifted, mask, morton_small)
+        if use_stats:
+            # the multigrid solver consumes only the k-th-NN distance
+            # (the seed ball), never the sorted neighbour lists
+            dk, normals, curv = knn_normals_window_stats(
+                spos.float(), smask, k=knn_k, window=knn_window_size,
+                radius=normal_radius, max_nn=normal_max_nn,
+                rank_mode=stats_rank_mode,
+            )
+        else:
+            neigh_idx, neigh_d, normals, curv = knn_normals_window_sorted(
+                spos.float(), smask, k=max(knn_k, 16),
+                window=knn_window_size, radius=normal_radius,
+                max_nn=normal_max_nn,
+            )
+        synchronize(dev)
     t1 = time.perf_counter()
     timings["stage1"] = t1 - t0
 
@@ -198,24 +202,27 @@ def run_device_pipeline(
     )
     if seg_anchor_cos is not None:
         seg_kwargs["th_anchor_cos"] = seg_anchor_cos
-    if use_stats:
-        seg = segment_planes_multigrid(
-            spos, normals, smask, kth_sq_dist=dk, curvature=curv,
-            group=seg_group, levels=seg_levels,
-            refine_sweeps=seg_refine_sweeps, seed_source=seg_seed_source,
-            seed_mode=seg_seed_mode, spacing_hint_mm=spacing_hint_mm,
-            **seg_kwargs,
-        )
-    else:
-        seg = segment_planes(
-            spos, normals, neigh_idx[:, :knn_k], smask,
-            neigh_sq_dist=neigh_d[:, :knn_k], curvature=curv, **seg_kwargs,
-        )
+    with annotate("segmentation"):
+        if use_stats:
+            seg = segment_planes_multigrid(
+                spos, normals, smask, kth_sq_dist=dk, curvature=curv,
+                group=seg_group, levels=seg_levels,
+                refine_sweeps=seg_refine_sweeps, seed_source=seg_seed_source,
+                seed_mode=seg_seed_mode, spacing_hint_mm=spacing_hint_mm,
+                **seg_kwargs,
+            )
+        else:
+            seg = segment_planes(
+                spos, normals, neigh_idx[:, :knn_k], smask,
+                neigh_sq_dist=neigh_d[:, :knn_k], curvature=curv,
+                **seg_kwargs,
+            )
     t2 = time.perf_counter()
     timings["segmentation"] = t2 - t1
     timings.update(seg.timings)
-    plane_idx = unsort_labels(order, seg.plane_idx)
-    synchronize(dev)
+    with annotate("unsort"):
+        plane_idx = unsort_labels(order, seg.plane_idx)
+        synchronize(dev)
     timings["unsort"] = time.perf_counter() - t2
     return shifted, lo, dataclasses.replace(seg, plane_idx=plane_idx)
 
@@ -230,38 +237,41 @@ def _classic_pipeline(
     ``knn_k`` slots, all in the input order."""
     dev = positions.device
     t0 = time.perf_counter()
-    shifted, lo, _hi = shift_to_origin(positions, mask)
-    if knn_method == "pallas":
-        # Morton-sort first so the candidate tiles are spatially coherent
-        # and the box pruning bites; ids map back through ``order`` and
-        # the rows scatter into the input frame
-        order = morton_argsort(shifted, mask)
-        s_idx, s_d = knn_pallas(shifted[order], mask[order], k=k_search)
-        neigh_idx = torch.empty_like(s_idx)
-        neigh_d = torch.empty_like(s_d)
-        neigh_idx[order] = order[s_idx.long()].to(torch.int32)
-        neigh_d[order] = s_d
-    else:
-        neigh_idx, neigh_d = knn(shifted, mask, k=k_search)
-    synchronize(dev)
+    with annotate("knn"):
+        shifted, lo, _hi = shift_to_origin(positions, mask)
+        if knn_method == "pallas":
+            # Morton-sort first so the candidate tiles are spatially
+            # coherent and the box pruning bites; ids map back through
+            # ``order`` and the rows scatter into the input frame
+            order = morton_argsort(shifted, mask)
+            s_idx, s_d = knn_pallas(shifted[order], mask[order], k=k_search)
+            neigh_idx = torch.empty_like(s_idx)
+            neigh_d = torch.empty_like(s_d)
+            neigh_idx[order] = order[s_idx.long()].to(torch.int32)
+            neigh_d[order] = s_d
+        else:
+            neigh_idx, neigh_d = knn(shifted, mask, k=k_search)
+        synchronize(dev)
     t1 = time.perf_counter()
     timings["knn"] = t1 - t0
-    normals, curv = estimate_normals(
-        shifted, mask, neigh_idx, neigh_d, radius=normal_radius,
-        max_nn=normal_max_nn,
-    )
-    synchronize(dev)
+    with annotate("normals"):
+        normals, curv = estimate_normals(
+            shifted, mask, neigh_idx, neigh_d, radius=normal_radius,
+            max_nn=normal_max_nn,
+        )
+        synchronize(dev)
     t2 = time.perf_counter()
     timings["normals"] = t2 - t1
     timings["stage1"] = t2 - t0
-    seg = segment_planes(
-        shifted, normals, neigh_idx[:, :knn_k], mask, curvature=curv,
-        th_seed_curvature=th_seed_curvature, th_thickness=th_thickness,
-        th_normal_cos=th_normal_cos, th_point_count=th_point_count,
-        max_planes=max_planes, max_sweeps=max_sweeps,
-        convergence_tol=convergence_tol, signed_normals=signed_normals,
-        propagation="graph",
-    )
+    with annotate("segmentation"):
+        seg = segment_planes(
+            shifted, normals, neigh_idx[:, :knn_k], mask, curvature=curv,
+            th_seed_curvature=th_seed_curvature, th_thickness=th_thickness,
+            th_normal_cos=th_normal_cos, th_point_count=th_point_count,
+            max_planes=max_planes, max_sweeps=max_sweeps,
+            convergence_tol=convergence_tol, signed_normals=signed_normals,
+            propagation="graph",
+        )
     timings["segmentation"] = time.perf_counter() - t2
     timings.update(seg.timings)
     return shifted, lo, seg
@@ -363,18 +373,20 @@ def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, config,
     t2 = time.perf_counter()
     n = cloud.count
     num_planes = seg.num_planes
-    plane_idx = seg.plane_idx[:n].cpu().numpy().astype(np.int32)
-    p_count = seg.plane_count[:num_planes].cpu().numpy()
-    p_normal = seg.plane_normal[:num_planes].cpu().numpy()
-    p_center = seg.plane_center[:num_planes].cpu().numpy()
-    diag = seg.diagnostics.cpu().numpy()
+    with annotate("device_to_host"):
+        plane_idx = seg.plane_idx[:n].cpu().numpy().astype(np.int32)
+        p_count = seg.plane_count[:num_planes].cpu().numpy()
+        p_normal = seg.plane_normal[:num_planes].cpu().numpy()
+        p_center = seg.plane_center[:num_planes].cpu().numpy()
+        diag = seg.diagnostics.cpu().numpy()
     t3 = time.perf_counter()
     timings["device_to_host"] = t3 - t2
 
-    colors = colorize_planes(
-        plane_idx, num_planes, low=config.color_low,
-        rng_range=config.color_range,
-    )
+    with annotate("colorize"):
+        colors = colorize_planes(
+            plane_idx, num_planes, low=config.color_low,
+            rng_range=config.color_range,
+        )
     # attribute passthrough: the reference's writer keeps reflectance
     # and frame index beside the new label colors (tmc3/ply.cpp:131-136)
     out_cloud = HostPointCloud(
@@ -431,6 +443,53 @@ def segment_cloud(
     timings["device_pipeline"] = time.perf_counter() - t1
     return _finish_output(cloud, shifted_h, lo_h, shifted, batch.mask, seg,
                           config, timings, t0)
+
+
+def dump_stages(
+    output: PipelineOutput, path: str, *, include_graph: bool = False,
+    config: PipelineConfig = DEFAULT_CONFIG, device="cuda",
+) -> None:
+    """Write a run's stage outputs to ``path`` (.npz): the shifted
+    positions, labels and plane table — the structured, opt-in analog of
+    the reference's mid-pipeline debug PLY (tmc3/my_function.h:81).
+
+    With ``include_graph`` the kNN lists, normals and curvature are
+    recomputed on ``device`` by the fused window sweep under ``config``
+    (in the Morton frame, then unsorted) and saved beside them: the
+    stage to look at when a segmentation changes.  Keys, dtypes and
+    shapes are the JAX package's.
+    """
+    extra = {}
+    if include_graph:
+        pos_h = output.cloud.positions
+        n = pos_h.shape[0]
+        batch = PointBatch.upload(pos_h, config.padded_count(n), device=device)
+        order = morton_argsort(batch.positions, batch.mask)
+        idx, d, nrm, curv = knn_normals_window_sorted(
+            batch.positions[order].float(), batch.mask[order],
+            k=max(config.knn_k, 16), window=config.knn_window,
+            radius=config.normal_radius, max_nn=config.normal_max_nn,
+        )
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        keep = inv[:n]
+        extra = {
+            "neigh_idx": order[idx.long()][keep].to(torch.int32).cpu().numpy(),
+            "neigh_sq_dist": d[keep].cpu().numpy(),
+            "normals": nrm[keep].cpu().numpy(),
+            "curvature": curv[keep].cpu().numpy(),
+        }
+    np.savez_compressed(
+        path,
+        positions=output.cloud.positions,
+        plane_idx=output.plane_idx,
+        plane_normals=output.plane_normals,
+        plane_centers=output.plane_centers,
+        plane_counts=output.plane_counts,
+        bbox_min=output.bbox_min,
+        num_planes=output.num_planes,
+        **extra,
+    )
 
 
 def segment_file(

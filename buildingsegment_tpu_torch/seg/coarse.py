@@ -22,7 +22,10 @@ are almost always samples of one plane, so:
    test with the predicted merged RMS, union by min, flatness per root;
    hole adoption against the 128 largest flat roots (the adoption
    kernel); cull (> th_point_count), renumber through the rank lookup
-   (the lookup kernel), dense plane table.
+   (the lookup kernel), dense plane table.  ``heal`` trims the outermost
+   finalize: "merge" skips the adoption; False skips the merge too and
+   takes the plain segment sums (the segment-sum kernel) in place of
+   the payload-moment pass.
 
 The [P, P] work runs on the first ``n_live`` table rows only: every
 plane id is at most ``n_live``, so the other rows are empty and take no
@@ -41,6 +44,7 @@ from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
 from buildingsegment_tpu_torch.ops.segsum import (
     plane_payload_moment_sums,
+    plane_sums,
     row_order_sums,
     table_lookup,
 )
@@ -52,12 +56,15 @@ from buildingsegment_tpu_torch.seg.region_grow import (
 )
 from buildingsegment_tpu_torch.utils.device import synchronize
 
-__all__ = ["segment_planes_multigrid"]
+__all__ = ["segment_planes_multigrid", "HEAL_MODES"]
 
 #: hole-adoption table width (the TPU kernel's lane count)
 ADOPT_K = 128
 #: union-by-min jump rounds of the finalize (cover any chain ≤ 4096)
 MERGE_JUMPS = 12
+#: ``heal`` values: the full heal (merge and hole adoption), the merge
+#: alone, neither
+HEAL_MODES = (True, "merge", False)
 
 
 def _group_sum(a: torch.Tensor) -> torch.Tensor:
@@ -115,6 +122,7 @@ def segment_planes_multigrid(
     seed_source: Optional[str] = None,
     seed_mode: Optional[str] = None,
     spacing_hint_mm: Optional[float] = None,
+    heal=True,
 ) -> SegmentationResult:
     """Multigrid windowized plane segmentation (Morton-sorted input).
 
@@ -124,10 +132,17 @@ def segment_planes_multigrid(
     ``seed_source="coarse"`` derives the group seeds from the coherence
     statistics instead (no seed sweep; a different criterion).
     ``seed_mode`` picks the fine seed sweep's variant
-    (``region_grow.SEED_MODES``; "mxu" = block form).  The JAX
-    package's ``heal`` knob (a perf-attribution switch) is not ported:
-    the full heal runs at every level, as in production.
+    (``region_grow.SEED_MODES``; "mxu" = block form).
+
+    ``heal`` (one of :data:`HEAL_MODES`) trims this level's finalize:
+    True runs the coplanar merge and the hole adoption, "merge" the
+    merge alone, False neither (identity union, the segment sums of
+    ``plane_sums``).  The inner levels always heal fully, as in the JAX
+    package (an inner adoption feeds the next level's refinement); the
+    switch is a perf-attribution knob, and True is what production runs.
     """
+    if heal not in HEAL_MODES:
+        raise ValueError(f"heal={heal!r}, expected one of {HEAL_MODES}")
     t_start = time.perf_counter()
     dev = positions.device
     n = positions.shape[0]
@@ -248,21 +263,94 @@ def segment_planes_multigrid(
         )
     t = _add_timing(timings, "mg_refine", t, dev)
 
-    # 4. finalize: payload sums + moments about the coarse centers
+    # 4. finalize: payload sums (+ moments about the coarse centers when
+    # the merge needs them)
     sq = pos3[0] * pos3[0] + pos3[1] * pos3[1] + pos3[2] * pos3[2]
     ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
     payload = torch.cat([ones, cn, pos, sq[:, None]], 1).contiguous()
     member = mask & (pid > 0)
     cap128 = -(-max_planes // 128) * 128
     old_row = torch.where(member, pid - 1, cap128).to(torch.int32)
-    acc_a, acc_mq = plane_payload_moment_sums(
-        old_row, payload, pc, n_live, table_cap=max_planes,
-    )
     # only the first L rows can be live (every id ≤ n_live)
     L = max(min(n_live, max_planes), 1)
-    acc = acc_a[:L]
-    acc_mq = acc_mq[:L]
     rows_p = torch.arange(L, dtype=torch.int64, device=dev)
+    if heal:
+        acc_a, acc_mq = plane_payload_moment_sums(
+            old_row, payload, pc, n_live, table_cap=max_planes,
+        )
+        acc = acc_a[:L]
+        acc_mq = acc_mq[:L]
+    else:
+        acc = plane_sums(old_row, payload, n_live, table_cap=max_planes)[:L]
+    cnt_o = acc[:, 0]
+    live_o = cnt_o > 0
+    if heal:
+        acc_o = acc
+        acc, parent, acc_m, c_t = _merge_coplanar(
+            acc_o, acc_mq, pc[:L], rows_p, cmag, edge_mm=edge_mm,
+            th_thickness=th_thickness, th_normal_cos=th_normal_cos)
+    else:
+        parent = rows_p
+    adopted = adopt_row = None
+    if heal is True:
+        adopted, adopt_row, acc = _adopt_holes(
+            acc, acc_o, acc_m, c_t, parent, payload, mask & (pid == 0),
+            edge_mm=edge_mm, th_thickness=th_thickness,
+            th_normal_cos=th_normal_cos, signed_normals=signed_normals)
+
+    # cull (> th_point_count) and renumber by rank of the merged root
+    keep = acc[:, 0].to(torch.int32) > th_point_count
+    rank = prefix_sum_i32(keep.to(torch.int32))
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    lut = torch.cat([zero, torch.where(keep[parent] & live_o, rank[parent],
+                                       0).to(torch.int32)])
+    new_id = table_lookup(torch.where(member, pid, 0).to(torch.int32), lut,
+                          n_live + 1)
+    if adopted is not None:
+        # disjoint supports: members and adopted holes
+        lut2 = torch.cat([zero, torch.where(keep, rank, 0).to(torch.int32)])
+        pid_adopt = torch.where(adopted, adopt_row + 1, 0).to(torch.int32)
+        new_id = new_id + table_lookup(pid_adopt, lut2, n_live + 1)
+    plane_idx = torch.where(new_id > 0, new_id, -1).to(torch.int32)
+
+    # dense table: kept merged-root rows in rank order
+    slot = torch.where(keep, rank - 1, L).long()
+    old_of_new = torch.zeros(L + 1, dtype=torch.int64, device=dev)
+    old_of_new[slot] = rows_p
+    valid_new = (rows_p < rank[L - 1])[:, None]
+    acc_new = torch.zeros((max_planes, 8), dtype=torch.float32, device=dev)
+    acc_new[:L] = torch.where(valid_new, acc[old_of_new[:L]], 0.0)
+    cnt2 = acc_new[:, 0].to(torch.int32)
+    sc = torch.clamp_min(cnt2, 1).float()[:, None]
+    live2 = (cnt2 > 0)[:, None]
+    plane_normal = torch.where(live2, _unit(acc_new[:, 1:4] / sc), 0.0)
+    plane_center = torch.where(live2, acc_new[:, 4:7] / sc, 0.0)
+    num_planes = int(rank[L - 1])
+    _add_timing(timings, "mg_finalize", t, dev)
+    return SegmentationResult(
+        plane_idx=plane_idx,
+        num_planes=num_planes,
+        plane_normal=plane_normal,
+        plane_center=plane_center,
+        plane_count=cnt2,
+        num_sweeps=coarse.num_sweeps,
+        # the coarse counters bound the hierarchy: refine and finalize
+        # create no labels
+        diagnostics=coarse.diagnostics,
+        host_syncs=coarse.host_syncs + 1,
+        timings=timings,
+    )
+
+
+def _merge_coplanar(acc, acc_mq, pc, rows_p, cmag, *, edge_mm, th_thickness,
+                    th_normal_cos):
+    """The finalize's coplanar merge on the [L] table: the pair test with
+    the predicted merged-plane RMS, union by min with jump doubling, the
+    sums folded onto the roots.  ``acc_mq`` holds the moments about the
+    coarse centers ``pc``.  Returns (root sums f32[L, 8], parent
+    int64[L], each plane's moments about its own center f32[L, 6], its
+    center f32[L, 3])."""
+    L = acc.shape[0]
     cnt_o = acc[:, 0]
     live_o = cnt_o > 0
     sc_o = torch.clamp_min(cnt_o, 1.0)[:, None]
@@ -271,7 +359,7 @@ def segment_planes_multigrid(
     ccd = _dot3(c_t, c_t)
     r_t = torch.sqrt(torch.clamp_min(acc[:, 7] / sc_o[:, 0] - ccd, 0.0))
     # parallel-axis shift of the moments to each plane's own center
-    dq = c_t - pc[:L]
+    dq = c_t - pc
     shift = torch.stack([dq[:, 0] * dq[:, 0], dq[:, 1] * dq[:, 1],
                          dq[:, 2] * dq[:, 2], dq[:, 0] * dq[:, 1],
                          dq[:, 0] * dq[:, 2], dq[:, 1] * dq[:, 2]], 1)
@@ -319,8 +407,20 @@ def segment_planes_multigrid(
     for _ in range(MERGE_JUMPS):
         parent = torch.minimum(parent, parent[parent])
     del ok_pair, r2m, num, mm, nm3, di3, dj3, q3, d2, inplane2, reach
-    acc = row_order_sums(parent, acc, L)
+    return row_order_sums(parent, acc, L), parent, acc_m, c_t
 
+
+def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
+                 th_thickness, th_normal_cos, signed_normals):
+    """The finalize's hole adoption: flatness per merged root, then each
+    hole row tested against the 128 largest flat roots (the adoption
+    kernel).  ``acc`` holds the root sums, ``acc_o``, ``acc_m`` and
+    ``c_t`` each plane's own sums, moments about its center and center.
+    Returns (adopted bool[n], the adopting root row int32[n], the root
+    sums with the adopted rows' payload added)."""
+    L = acc.shape[0]
+    dev = acc.device
+    cnt_o = acc_o[:, 0]
     # flatness per merged root: only a flat root adopts holes
     cnt_r = acc[:, 0]
     sc_r = torch.clamp_min(cnt_r, 1.0)[:, None]
@@ -358,7 +458,6 @@ def segment_planes_multigrid(
     lane_ok = (top_cnt > 0) & flat_ok[top_row]
     lane_rows = torch.zeros(ADOPT_K, dtype=torch.int32, device=dev)
     lane_rows[:k] = top_row.to(torch.int32)
-    holes = mask & (pid == 0)
     adopted, adopt_row, acc128 = plane_adopt(
         payload, holes, adopt_table(nk, ck, bk, ccdk, reachk * reachk,
                                     lane_ok),
@@ -366,46 +465,4 @@ def segment_planes_multigrid(
         th_cos=float(th_normal_cos), signed=signed_normals,
     )
     # fold the lane sums onto their root rows (top_row is a permutation)
-    acc = acc.index_add(0, top_row, acc128[:k])
-
-    # cull (> th_point_count) and renumber by rank of the merged root
-    keep = acc[:, 0].to(torch.int32) > th_point_count
-    rank = prefix_sum_i32(keep.to(torch.int32))
-    zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    lut = torch.cat([zero, torch.where(keep[parent] & live_o, rank[parent],
-                                       0).to(torch.int32)])
-    lut2 = torch.cat([zero, torch.where(keep, rank, 0).to(torch.int32)])
-    pid_adopt = torch.where(adopted, adopt_row + 1, 0).to(torch.int32)
-    new_id = table_lookup(torch.where(member, pid, 0).to(torch.int32), lut,
-                          n_live + 1)
-    # disjoint supports: members and adopted holes
-    new_id = new_id + table_lookup(pid_adopt, lut2, n_live + 1)
-    plane_idx = torch.where(new_id > 0, new_id, -1).to(torch.int32)
-
-    # dense table: kept merged-root rows in rank order
-    slot = torch.where(keep, rank - 1, L).long()
-    old_of_new = torch.zeros(L + 1, dtype=torch.int64, device=dev)
-    old_of_new[slot] = rows_p
-    valid_new = (rows_p < rank[L - 1])[:, None]
-    acc_new = torch.zeros((max_planes, 8), dtype=torch.float32, device=dev)
-    acc_new[:L] = torch.where(valid_new, acc[old_of_new[:L]], 0.0)
-    cnt2 = acc_new[:, 0].to(torch.int32)
-    sc = torch.clamp_min(cnt2, 1).float()[:, None]
-    live2 = (cnt2 > 0)[:, None]
-    plane_normal = torch.where(live2, _unit(acc_new[:, 1:4] / sc), 0.0)
-    plane_center = torch.where(live2, acc_new[:, 4:7] / sc, 0.0)
-    num_planes = int(rank[L - 1])
-    _add_timing(timings, "mg_finalize", t, dev)
-    return SegmentationResult(
-        plane_idx=plane_idx,
-        num_planes=num_planes,
-        plane_normal=plane_normal,
-        plane_center=plane_center,
-        plane_count=cnt2,
-        num_sweeps=coarse.num_sweeps,
-        # the coarse counters bound the hierarchy: refine and finalize
-        # create no labels
-        diagnostics=coarse.diagnostics,
-        host_syncs=coarse.host_syncs + 1,
-        timings=timings,
-    )
+    return adopted, adopt_row, acc.index_add(0, top_row, acc128[:k])

@@ -2,6 +2,17 @@
 the label-agreement metric (copies of the JAX package's modules)."""
 
 from buildingsegment_tpu_torch.utils.quality import bij_agreement
-from buildingsegment_tpu_torch.utils.synthetic import make_building_cloud
+from buildingsegment_tpu_torch.utils.synthetic import (
+    make_block_cloud,
+    make_building_cloud,
+    make_cylinder_cloud,
+    make_terrain_cloud,
+)
 
-__all__ = ["bij_agreement", "make_building_cloud"]
+__all__ = [
+    "bij_agreement",
+    "make_block_cloud",
+    "make_building_cloud",
+    "make_cylinder_cloud",
+    "make_terrain_cloud",
+]

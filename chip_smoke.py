@@ -99,7 +99,38 @@ Phases, in order; the first failure exits non-zero:
    held bit for bit (#16 also with the full-walk balls of step 4); #15 and #3 timed on the same captured stats input,
    #16 and #4 on the same captured seed input, as in step 4, beside the
    one bound of each pair; the labels agree with the default path's
-   scan 0 of step 10 (cross agreement ≥ 0.99).
+   scan 0 of step 10 (cross agreement ≥ 0.99);
+12. the reference's scene tests on the card at their own sizes
+   (tests/test_scenes.py: a tilted plane, rolling terrain, a cylinder
+   tank, a block of houses with clutter, through ``run_device_pipeline``
+   under test_scenes.py's ``_run`` configuration; tests/
+   test_multibuilding.py: two houses 40 m apart through
+   ``segment_cloud``): each must launch the default path's eight kernels
+   and give the JAX package's plane count on the CPU at a truth
+   agreement ≥ the JAX package's − 0.01 (``SCENE_EXPECT``);
+13. the multigrid ``heal`` switch at False and "merge" (the port's
+   ``segment_planes_multigrid`` with the switch, under ``segment_file``):
+   on the 9k-point scene card and CPU give the same planes at cross
+   agreement ≥ 0.99 and truth agreement within 0.01; on the slice's
+   scene #8 ``plane_sums`` launches once at False (the outermost
+   finalize's sums) and never at "merge", #13 only at the inner level,
+   every #8 call held bit for bit against its plain version and timed
+   beside its bound;
+14. ``estimate_normals_window`` at bench.py's width: the house at 25 mm
+   (1,082,304 points, capacity 1,083,392, Morton-sorted), radius 100,
+   w = 64: #3 in radius-only mode (k = 1, no cap) launches once a call,
+   is held bit for bit against its plain version and timed beside its
+   bound; the normals are unit and finite; normals Mpts/s;
+15. the CLI's ``--trace DIR`` (a Chrome trace holding the pipeline's
+   stage spans and the card's kernels), ``--dump-stages F`` (the JAX
+   package's keys) on the slice's scene, and ``--golden`` on the 9k-point
+   scene (a PLY of its points), as subprocesses;
+16. the native host codec (g++, built in step 2): on the slice's scene
+   and on config 5's scan 0 ``write_ply`` writes the numpy codec's bytes
+   and ``read_ply`` gives its arrays, both timed; the measured default
+   runs of step 6 went through it (its call counts), their
+   ``read_ply`` / ``write_ply`` / ``host_to_device`` printed beside the
+   numpy codec's figures of the previous commit (``NUMPY_CODEC_MS``).
 
 The last three lines of stdout are the card line, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.
@@ -107,6 +138,7 @@ record and ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -186,6 +218,47 @@ LOOKUP_COLS = 3
 # balls of #16's full walk, on every sixth row of its held inputs: the
 # 1e29 cut, above it, +inf and NaN (and a negative one)
 FULL_WALK_BALLS = (1e29, 5e29, 2e30, float("inf"), float("nan"), -1.0)
+# tests/test_scenes.py's scenes and the configuration of its _run; the
+# two houses of tests/test_multibuilding.py (segment_cloud, their config)
+SCENE_RUN = dict(
+    k_search=50, knn_k=15, normal_radius=100.0, normal_max_nn=50,
+    th_thickness=300.0, th_normal_cos=0.88, th_point_count=400,
+    max_planes=4096, max_sweeps=64, knn_method="window",
+    knn_window_size=64, convergence_tol=1e-5, seg_group=4, seg_levels=2,
+    seg_refine_sweeps=3)
+SCENES = {
+    "tilted_plane": ("make_terrain_cloud", dict(
+        seed=3, extent_mm=10_000.0, spacing_mm=50.0, slope=0.15)),
+    "rolling_terrain": ("make_terrain_cloud", dict(
+        seed=3, extent_mm=10_000.0, spacing_mm=50.0, slope=0.05,
+        roll_amp_mm=400.0, roll_period_mm=4_000.0)),
+    "cylinder_tank": ("make_cylinder_cloud", dict(
+        seed=2, spacing_mm=50.0, ground_extent_mm=8_000.0)),
+    "block_clutter": ("make_block_cloud", dict(
+        seed=4, nx=2, ny=1, spacing_mm=80.0, clutter_frac=0.1)),
+}
+TWO_HOUSES_CONFIG = dict(normal_radius=500.0, pad_to_multiple=2048,
+                         knn_method="window")
+# (points, planes, truth agreement) of the JAX package on the CPU, from
+# JAX_PLATFORMS=cpu python -m pytest -q -s -m slow tests/test_torch_scenes.py
+SCENE_EXPECT = {
+    "tilted_plane": (40000, 1, 0.998625),
+    "rolling_terrain": (40000, 13, 0.442250),
+    "cylinder_tank": (59416, 8, 0.427831),
+    "block_clutter": (110720, 12, 0.931765),
+    "two_houses": (60608, 16, 0.933458),
+}
+# the stage spans the window path's run puts in a --trace
+TRACE_SPANS = ("stage1", "segmentation", "unsort", "device_to_host",
+               "colorize")
+# the keys of the JAX package's --dump-stages file
+DUMP_KEYS = ("positions", "plane_idx", "plane_normals", "plane_centers",
+             "plane_counts", "bbox_min", "num_planes")
+# the default path's host stages with the numpy codec at the previous
+# commit (ms, min–max of three runs, NVIDIA H100 80GB HBM3, 700.00 W;
+# its read_ply was not recorded)
+NUMPY_CODEC_MS = {"write_ply": (15.9, 18.8), "host_to_device": (24.9, 27.8),
+                  "total_with_io": (91.4, 115.1)}
 
 
 def mxu_config(**kw):
@@ -224,6 +297,40 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def card_ms(torch, fn, reps=20):
+    """Device milliseconds a call of ``fn``: the kernels' time in a
+    ``torch.profiler`` trace of ``reps`` calls (after one warm-up), None
+    where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0 and "CUDA" in str(e.device_type):
+            total += us
+    return total / 1e3 / reps if total else None
+
+
+def timed_row(torch, name, row, calls, cuda_fn, where, card):
+    """Add the profiler's card ms of the first call at the largest row
+    count to a kernel's row, and print it."""
+    big = max(n for n, _a, _k in calls)
+    _n, args, kw = next(c for c in calls if c[0] == big)
+    row["card_ms"] = card_ms(torch, lambda: cuda_fn(*args, **kw))
+    print(f"{name} ({where}): card ms {row['card_ms']} a call (profiler), "
+          f"bound {row['bound_ms']:.6f} ms ({card})")
+    return row
 
 
 def window_pairs(torch, mask, w):
@@ -296,10 +403,14 @@ def work(torch, name, args, kw, out):
         mask = args[1]
         pairs = window_pairs(torch, mask, kw["w"])
         used = float((out[1] - mask.float()).sum())
+        # the order statistics the call selects: the k-th NN (k > 1) and
+        # the hybrid cap (max_nn − 1 < 2w); radius-only mode has neither
+        stats = int(kw["k"] > 1) + int(
+            kw["max_nn"] is not None and kw["max_nn"] - 1 < 2 * kw["w"])
         # per pair: d² (8), the radius ∩ cap test (1) and one compare for
-        # each of the two order statistics (a selection must look at
-        # every candidate once); per neighbour used: the moments (19)
-        ops = pairs * (8 + 1 + 2) + used * 19
+        # each order statistic (a selection must look at every candidate
+        # once); per neighbour used: the moments (19)
+        ops = pairs * (8 + 1 + stats) + used * 19
     elif name == "seed_sweep":
         # by unordered pairs (the tests are symmetric up to the ball and
         # the normal): d² (8) and the cos with its compare (6) once a
@@ -903,6 +1014,308 @@ def mxu_full_phase(torch, np, hooks, cuda_fns, card, default_labels0):
     return summary
 
 
+def padded(torch, pts, cap):
+    """Scene points padded to ``cap`` rows on the card: (positions, mask)."""
+    from buildingsegment_tpu_torch.core.pointset import PointBatch
+
+    batch = PointBatch.upload(pts, cap, device="cuda")
+    return batch.positions, batch.mask
+
+
+def scenes_phase(torch, np, card):
+    """The reference's scene tests on the card; see the module docstring,
+    step 12.  Returns the record by scene."""
+    from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.pipeline import (
+        HostPointCloud, PipelineConfig, run_device_pipeline, segment_cloud,
+    )
+    from buildingsegment_tpu_torch.utils import bij_agreement, synthetic
+
+    rec = {}
+
+    def hold(name, n, planes, labels, truth, secs):
+        want_n, want_planes, jax_bij = SCENE_EXPECT[name]
+        launched = dict(kernels.launch_counts)
+        missing = [k for k in PATH_KERNELS["default"] if not launched[k]]
+        bij = bij_agreement(truth, labels)
+        if n != want_n or planes != want_planes or bij < jax_bij - 0.01:
+            fail(f"scene {name}: {n} points, {planes} planes at truth "
+                 f"agreement {bij:.6f}; the JAX package: {want_n} points, "
+                 f"{want_planes} planes at {jax_bij}")
+        if missing:
+            fail(f"scene {name}: never launched {missing}")
+        rec[name] = {"points": n, "planes": planes, "truth_bij": bij,
+                     "jax_truth_bij": jax_bij, "s": secs,
+                     "launches": launched}
+        print(f"scene {name}: {n} points, {planes} planes (JAX: "
+              f"{want_planes}) at truth agreement {bij:.6f} (JAX: "
+              f"{jax_bij}), {secs:.3f} s ({card})")
+
+    for name, (builder, kw) in SCENES.items():
+        pts, truth = getattr(synthetic, builder)(**kw)
+        n = len(pts)
+        pos, mask = padded(torch, pts, -(-n // 1024) * 1024)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, seg = run_device_pipeline(pos, mask, **SCENE_RUN)
+        labels = seg.plane_idx[:n].cpu().numpy()
+        hold(name, n, seg.num_planes, labels, truth,
+             time.perf_counter() - t)
+
+    a, ta = synthetic.make_building_cloud(seed=1, spacing_mm=150.0,
+                                          noise_mm=8.0)
+    b, tb = synthetic.make_building_cloud(seed=2, spacing_mm=150.0,
+                                          noise_mm=8.0)
+    pts = np.concatenate([a, b + np.array([40_000, 0, 0], np.int32)])
+    truth = np.concatenate([ta, tb + ta.max()])
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    out = segment_cloud(HostPointCloud(positions=pts),
+                        PipelineConfig(**TWO_HOUSES_CONFIG), device="cuda")
+    for pid in range(1, out.num_planes + 1):
+        x = pts[out.plane_idx == pid][:, 0]
+        if x.min() < 20_000 and x.max() > 35_000:
+            fail(f"two houses: plane {pid} spans both buildings")
+    hold("two_houses", len(pts), out.num_planes, out.plane_idx, truth,
+         time.perf_counter() - t)
+    return rec
+
+
+def heal_phase(torch, np, card, src, dst, pts, truth):
+    """The multigrid ``heal`` switch; see the module docstring, step 13.
+    Returns (the record, #8's row on the multigrid path)."""
+    from buildingsegment_tpu_torch import kernels, pipeline
+    from buildingsegment_tpu_torch.ops import segsum
+    from buildingsegment_tpu_torch.seg import coarse
+    from buildingsegment_tpu_torch.utils import (
+        bij_agreement, make_building_cloud,
+    )
+
+    spts, struth = make_building_cloud(**SMALL_SCENE)
+    hook = {"plane_sums": (coarse, "plane_sums",
+                           segsum.plane_sums_reference)}
+    multigrid = pipeline.segment_planes_multigrid
+    rec, row = {}, None
+    for heal in (False, "merge"):
+        pipeline.segment_planes_multigrid = functools.partial(multigrid,
+                                                              heal=heal)
+        try:
+            cfg = pipeline.PipelineConfig(knn_method="window")
+            small = [pipeline.segment_cloud(
+                pipeline.HostPointCloud(positions=spts), cfg, device=dev)
+                for dev in ("cuda", "cpu")]
+            cross = bij_agreement(small[1].plane_idx, small[0].plane_idx)
+            gap = abs(bij_agreement(struth, small[0].plane_idx)
+                      - bij_agreement(struth, small[1].plane_idx))
+            if (small[0].num_planes != small[1].num_planes or cross < 0.99
+                    or gap >= 0.01):
+                fail(f"heal={heal!r}, small scene: card "
+                     f"{small[0].num_planes} planes vs CPU "
+                     f"{small[1].num_planes}, cross agreement {cross}, "
+                     f"truth agreement gap {gap}")
+            seen = {}
+            with spying(torch, hook, seen):
+                pipeline.segment_file(src, dst, pipeline.DEFAULT_CONFIG,
+                                      device="cuda")
+            kernels.reset_launch_counts()
+            out = pipeline.segment_file(src, dst, pipeline.DEFAULT_CONFIG,
+                                        device="cuda")
+            launched = dict(kernels.launch_counts)
+        finally:
+            pipeline.segment_planes_multigrid = multigrid
+        want = {"plane_sums": int(heal is False), "plane_adopt": 1,
+                "payload_moment_sums": 1 + int(heal is not False)}
+        got = {k: launched[k] for k in want}
+        if got != want:
+            fail(f"heal={heal!r}: launches {got}, expected {want}")
+        bij = bij_agreement(truth, out.plane_idx)
+        rec[str(heal)] = {
+            "small_planes": small[0].num_planes, "small_cross": cross,
+            "planes": out.num_planes, "truth_bij": bij,
+            "launches": launched,
+            "stages_s": {k: round(v, 6) for k, v in out.timings.items()}}
+        print(f"heal={heal!r}: small scene card == CPU "
+              f"{small[0].num_planes} planes (cross {cross:.4f}); slice "
+              f"scene {out.num_planes} planes at truth agreement "
+              f"{bij:.6f}, launches {launched} ({card})")
+        if heal is False:
+            if len(seen.get("plane_sums", ())) != 1:
+                fail(f"heal=False: captured {len(seen.get('plane_sums', ()))}"
+                     f" plane_sums calls, expected 1")
+            row = hold_kernel(torch, "plane_sums", "multigrid heal=False",
+                              seen["plane_sums"], kernels.plane_sums_cuda,
+                              segsum.plane_sums_reference, card)
+            row = timed_row(torch, "plane_sums", row, seen["plane_sums"],
+                            kernels.plane_sums_cuda, "multigrid heal=False",
+                            card)
+            row["launches"] = launched["plane_sums"]
+    return rec, row
+
+
+def normals_window_phase(torch, np, hooks, card):
+    """``estimate_normals_window`` at bench.py's width; see the module
+    docstring, step 14.  Returns (the record, #3's row on this path)."""
+    from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.core.morton import morton_argsort
+    from buildingsegment_tpu_torch.ops.normals import estimate_normals_window
+    from buildingsegment_tpu_torch.utils import make_building_cloud
+
+    pts, _ = make_building_cloud(**dict(MULTISCAN_SCENE, seed=0))
+    n = len(pts)
+    pos, mask = padded(torch, pts, -(-n // 2048) * 2048)
+    order = morton_argsort(pos, mask)
+    sposf, smask = pos[order].float(), mask[order]
+
+    def run():
+        return estimate_normals_window(sposf, smask, radius=100.0, window=64)
+
+    seen = {}
+    kernels.reset_launch_counts()
+    with spying(torch, {"stats_sweep": hooks["stats_sweep"]}, seen):
+        nrm, curv = run()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["stats_sweep"]
+    if launches != 1 or len(seen.get("stats_sweep", ())) != 1:
+        fail(f"estimate_normals_window launched stats_sweep {launches} "
+             f"times")
+    _n, _args, kw = seen["stats_sweep"][0]
+    if (kw["k"], kw["w"], kw["max_nn"]) != (1, 64, None):
+        fail(f"estimate_normals_window called stats_sweep with {kw}")
+    length = nrm[smask].norm(dim=1)
+    if not (bool(torch.isfinite(nrm).all()) and bool(torch.isfinite(curv)
+            .all()) and float((length - 1).abs().max()) < 1e-5):
+        fail("estimate_normals_window: non-finite or non-unit normals")
+    row = hold_kernel(torch, "stats_sweep", "estimate_normals_window",
+                      seen["stats_sweep"], kernels.stats_sweep_cuda,
+                      hooks["stats_sweep"][2], card)
+    row = timed_row(torch, "stats_sweep", row, seen["stats_sweep"],
+                    kernels.stats_sweep_cuda, "estimate_normals_window", card)
+    row["launches"] = launches
+    ms = cuda_ms(torch, run, 20)
+    rec = {"points": n, "rows": sposf.shape[0], "window": 64,
+           "radius": 100.0, "ms": ms, "mpts_per_s": n / ms / 1e3,
+           "card": card}
+    print(f"estimate_normals_window: {n} points ({sposf.shape[0]} rows, "
+          f"w = 64, radius 100): {ms:.4f} ms a call = "
+          f"{rec['mpts_per_s']:.3f} normals Mpts/s ({card})")
+    return rec, row
+
+
+def cli_flags(tmp, src, small_src, n_small):
+    """The CLI's ``--trace``, ``--dump-stages`` and ``--golden`` as
+    subprocesses on the card; see the module docstring, step 15."""
+    import numpy as np
+
+    from buildingsegment_tpu_torch.io.ply import read_ply
+    from buildingsegment_tpu_torch.profiling import TRACE_FILE
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def run(*argv):
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "buildingsegment_tpu_torch.cli", *argv],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"CLI {argv} exited {res.returncode}: {res.stderr[-2000:]}")
+        return res.stdout, time.perf_counter() - t
+
+    trace_dir = os.path.join(tmp, "trace")
+    _, secs = run(f"-a={src}", f"-s={os.path.join(tmp, 'trace.ply')}",
+                  "--trace", trace_dir)
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels_seen = sum(1 for e in events if e.get("cat") == "kernel")
+    missing = [s for s in TRACE_SPANS if s not in names]
+    if missing or not kernels_seen:
+        fail(f"CLI --trace: spans {missing} missing, {kernels_seen} card "
+             f"kernels")
+    print(f"CLI --trace: rc 0 ({secs:.1f} s), {len(events)} events, spans "
+          f"{list(TRACE_SPANS)}, {kernels_seen} card kernel events")
+
+    npz = os.path.join(tmp, "stages.npz")
+    run(f"-a={src}", f"-s={os.path.join(tmp, 'dump.ply')}", "--dump-stages",
+        npz)
+    with np.load(npz) as z:
+        keys = sorted(z.files)
+    if keys != sorted(DUMP_KEYS):
+        fail(f"CLI --dump-stages wrote keys {keys}")
+    print(f"CLI --dump-stages: rc 0, keys {keys}")
+
+    golden = os.path.join(tmp, "golden.ply")
+    out, secs = run(f"-a={small_src}", f"-s={golden}", "--golden")
+    if read_ply(golden).count != n_small or "(golden oracle)" not in out:
+        fail(f"CLI --golden printed {out!r}")
+    print(f"CLI --golden: rc 0 ({secs:.1f} s), {out.strip()}")
+
+
+def native_phase(np, card, src, spread_native):
+    """The native host codec against the numpy codec; see the module
+    docstring, step 16.  Returns its record."""
+    from buildingsegment_tpu_torch.io.ply import (
+        HostPointCloud, read_ply, read_ply_bytes, write_ply, write_ply_bytes,
+    )
+    from buildingsegment_tpu_torch.native import binding
+    from buildingsegment_tpu_torch.seg.colorize import colorize_planes
+    from buildingsegment_tpu_torch.utils import make_building_cloud
+
+    def timed(fn, reps=3):
+        best = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = fn()
+            best.append(time.perf_counter() - t)
+        return out, min(best) * 1e3
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scan0, _ = make_building_cloud(**dict(MULTISCAN_SCENE, seed=0))
+        scan_src = os.path.join(tmp, "scan0.ply")
+        write_ply(HostPointCloud(positions=scan0), scan_src,
+                  position_scale=1e-3)
+        for name, path in (("slice", src), ("config5_scan0", scan_src)):
+            binding.reset_native_calls()
+            cloud, t_read = timed(lambda: read_ply(path, 1000.0))
+            data, t_read_np = timed(
+                lambda: read_ply_bytes(open(path, "rb").read(), 1000.0))
+            for attr in ("positions", "colors"):
+                a, b = getattr(cloud, attr), getattr(data, attr)
+                if (a is None) != (b is None) or (
+                        a is not None and not np.array_equal(a, b)):
+                    fail(f"native read_ply of {name}: {attr} differs from "
+                         f"the numpy codec's")
+            labeled = HostPointCloud(
+                positions=cloud.positions,
+                colors=colorize_planes(np.arange(cloud.count) % 9 - 1, 7))
+            dst = os.path.join(tmp, f"{name}.out.ply")
+            _, t_write = timed(lambda: write_ply(labeled, dst))
+            blob, t_write_np = timed(lambda: write_ply_bytes(labeled))
+            with open(dst, "rb") as f:
+                if f.read() != blob:
+                    fail(f"native write_ply of {name}: bytes differ from "
+                         f"the numpy codec's")
+            calls = dict(binding.native_calls)
+            if calls["read_ply"] != 3 or calls["write_ply"] != 3:
+                fail(f"native codec calls on {name}: {calls}")
+            rec[name] = {"points": cloud.count, "read_ms": t_read,
+                         "read_numpy_ms": t_read_np, "write_ms": t_write,
+                         "write_numpy_ms": t_write_np}
+            print(f"native codec, {name} ({cloud.count} points): read_ply "
+                  f"{t_read:.3f} ms (numpy {t_read_np:.3f}), write_ply "
+                  f"{t_write:.3f} ms (numpy {t_write_np:.3f}); bytes and "
+                  f"arrays equal the numpy codec's ({card})")
+    rec["default_runs_ms"] = spread_native
+    print(f"default path with the native codec, three runs (ms): " + ", ".join(
+        f"{k} {v[0] * 1e3:.3f}–{v[1] * 1e3:.3f}" for k, v in
+        spread_native.items() if k in ("read_ply", "write_ply",
+                                       "host_to_device", "total_with_io"))
+          + f"; the numpy codec at the previous commit: " + ", ".join(
+        f"{k} {a}–{b}" for k, (a, b) in NUMPY_CODEC_MS.items()) + f" ({card})")
+    return rec
+
+
 def main():
     import torch
 
@@ -974,9 +1387,15 @@ def main():
         "table_lookup_cols": kernels.table_lookup_cols_cuda,
     }
 
-    # 2. build
+    # 2. build, the kernels and the native host codec
     t_build = kernels.build()
     print(f"build: {t_build:.2f} s (0 = library already built)")
+    from buildingsegment_tpu_torch.native import binding
+
+    t = time.perf_counter()
+    if not binding.native_available():
+        fail("no C++ compiler for the native host codec")
+    print(f"native codec build and load: {time.perf_counter() - t:.2f} s")
 
     configs = {
         "default": DEFAULT_CONFIG,
@@ -1088,10 +1507,15 @@ def main():
                   f"{bij:.6f}, launches {launches[path]}")
 
         # stage times over three more runs of the default and pallas
-        # paths (min, max)
+        # paths (min, max), each reading and writing through the native
+        # codec
+        binding.reset_native_calls()
         spread = {path: stage_spread([
             segment_file(src, dst, configs[path], device="cuda").timings
             for _ in range(3)]) for path in ("default", "pallas", "mxu")}
+        native_runs = dict(binding.native_calls)
+        if native_runs["read_ply"] != 9 or native_runs["write_ply"] != 9:
+            fail(f"the measured runs' native codec calls: {native_runs}")
 
         # 7. "auto" at 60,914 points resolves to the brute path
         apts, atruth = make_building_cloud(**AUTO_SCENE)
@@ -1142,6 +1566,15 @@ def main():
                  f"{summary['pallas']['planes']}")
         print(f"CLI --knn-method pallas: rc 0, {cli['planes']} planes")
         cli_render(tmp, src)
+
+        # 13. the multigrid heal switch; 15. the CLI's --trace,
+        # --dump-stages, --golden; 16. the native codec
+        heal, heal_row = heal_phase(torch, np, card, src, dst, pts, truth)
+        small_src = os.path.join(tmp, "small.ply")
+        write_ply(HostPointCloud(positions=spts), small_src,
+                  position_scale=0.001)
+        cli_flags(tmp, src, small_src, len(spts))
+        native = native_phase(np, card, src, spread["default"])
 
     # 8. the config-2 shape: knn_pallas(k=16) at ~1M rows
     cpts, _ = make_building_cloud(**CONFIG2_SCENE)
@@ -1212,6 +1645,11 @@ def main():
     # 11. the mxu path at full size
     mxu_full = mxu_full_phase(torch, np, hooks, cuda_fns, card, labels0)
 
+    # 12. the reference's scene tests; 14. estimate_normals_window
+    scenes = scenes_phase(torch, np, card)
+    normals_window, normals_row = normals_window_phase(torch, np, hooks,
+                                                       card)
+
     # the redesigned kernels (stage-then-fold sums, #3's selection, the
     # tiled window gates of #4 and #6, #1's lanes a row) at both sizes,
     # #1 also on the single-level path, and #14 on the pallas path and at
@@ -1239,7 +1677,12 @@ def main():
                       "paths": summary, "stages_min_max_s": spread,
                       "config2": config2, "multiscan": multiscan,
                       "mxu_pairs": mxu_pairs, "mxu_full": mxu_full,
-                      "fold_kernels": fold, "compact_phases": phases}))
+                      "fold_kernels": fold, "compact_phases": phases,
+                      "scenes": scenes, "heal": heal,
+                      "plane_sums_heal_false": heal_row,
+                      "normals_window": normals_window,
+                      "stats_sweep_normals_window": normals_row,
+                      "native_codec": native}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
         path = MAIN_PATH[name]

@@ -5,8 +5,8 @@ The reference argv contract (``-x=path`` split on '='), a run through
 JSON summary, the render with contours (``--render-dir R
 --extract-contours``: the three PNGs, the two overlays, ``csa.obj``),
 multi-scan ``--batch`` (rc 1 on a directory without scans), and the
-refusals: no ``-a=`` → rc 2, and every flag of a path the port does not
-have yet → rc 2 naming its ROADMAP.md item.
+refusal: no ``-a=`` → rc 2.  ``--trace``, ``--dump-stages`` and
+``--golden``: tests/test_torch_cli_flags.py.
 """
 
 import json
@@ -119,12 +119,3 @@ def test_batch_empty_dir(tmp_path, capsys):
     rc = main(["--batch", str(tmp_path), str(tmp_path / "out")],
               device="cpu")
     assert rc == 1 and "no .ply files" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("flag", [
-    ["--golden"], ["--trace", "t"], ["--dump-stages", "s.npz"],
-], ids=lambda f: f[0].lstrip("-"))
-def test_unported_flags_exit_2(flag, capsys):
-    assert main(["-a=in.ply", "-s=out.ply", *flag], device="cpu") == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP" in err

@@ -359,6 +359,9 @@ _STATS_CASES = {
     "w64": ("scene", dict(k=15, w=64, radius=300.0, max_nn=50)),
     "w100_cap_binds": ("scene", dict(k=15, w=100, radius=600.0, max_nn=50)),
     "k1": ("scene", dict(k=1, w=48, radius=300.0, max_nn=50)),
+    # estimate_normals_window's mode: no order statistic, no cap
+    "radius_only_w64": ("scene", dict(k=1, w=64, radius=100.0,
+                                      max_nn=None)),
     "cap_wider_than_window": ("scene", dict(k=15, w=48, radius=600.0,
                                             max_nn=100)),
     "cap_binds": ("scene", dict(k=15, w=48, radius=600.0, max_nn=50)),
@@ -1069,3 +1072,66 @@ def test_payload_moment_sums_fold_matches_plain(cuda, case):
     assert int(got[0][:, 0].sum()) == int(live.sum())
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def test_estimate_normals_window_card_matches_cpu(scene):
+    """#3 in radius-only mode under ``estimate_normals_window``: the card's
+    moments are the kernel's (launched), equal to the plain version's bit
+    for bit, and the normals follow the CPU path's within its moments'
+    reordering (the same rows; |n·n'| ≥ 1 − 1e-4 on 99% of them)."""
+    from buildingsegment_tpu_torch.ops.normals import estimate_normals_window
+
+    pos, _nrm, mask = scene
+    kernels.reset_launch_counts()
+    n_card, c_card = estimate_normals_window(pos, mask, radius=100.0,
+                                             window=64)
+    assert kernels.launch_counts["stats_sweep"] == 1
+    n_cpu, c_cpu = estimate_normals_window(pos.cpu(), mask.cpu(),
+                                           radius=100.0, window=64)
+    dots = (n_card.cpu() * n_cpu).sum(1).abs()[mask.cpu()]
+    assert float(torch.quantile(dots, 0.01)) >= 1 - 1e-4
+    assert torch.equal(torch.isfinite(c_card).cpu(), torch.isfinite(c_cpu))
+
+
+@pytest.mark.parametrize("heal", [True, "merge", False],
+                         ids=["full", "merge", "none"])
+def test_multigrid_heal_card_matches_cpu(cuda, heal):
+    """The multigrid ``heal`` switch on the card against the CPU: #8
+    launches at ``heal=False`` only (the outermost finalize's sums), and
+    the labels hold the end-to-end contract."""
+    from buildingsegment_tpu_torch.ops.stats_sweep import (
+        knn_normals_window_stats,
+    )
+    from buildingsegment_tpu_torch.seg.coarse import segment_planes_multigrid
+
+    pts, truth = make_building_cloud(**_SCENE)
+    cap = 16384
+    pos = np.full((cap, 3), 2**24, np.int32)
+    pos[: len(pts)] = pts
+    mask = np.zeros(cap, bool)
+    mask[: len(pts)] = True
+    struth = np.full(cap, -1)
+    struth[: len(pts)] = truth
+    out = {}
+    for dev in ("cuda", "cpu"):
+        spos, smask, order = morton_sort(torch.from_numpy(pos).to(dev),
+                                         torch.from_numpy(mask).to(dev), True)
+        dk, nrm, curv = knn_normals_window_stats(
+            spos.float(), smask, k=15, window=48, radius=100.0, max_nn=50)
+        kernels.reset_launch_counts()
+        seg = segment_planes_multigrid(
+            spos, nrm, smask, kth_sq_dist=dk, curvature=curv, group=4,
+            levels=2, max_edge_dist=600.0, heal=heal)
+        if dev == "cuda":
+            assert kernels.launch_counts["plane_sums"] == int(heal is False)
+            assert kernels.launch_counts["plane_adopt"] == 1 + int(
+                heal is True)
+        out[dev] = (seg.num_planes, seg.plane_idx.cpu().numpy(),
+                    order.cpu().numpy())
+    (pa, la, oa), (pb, lb, ob) = out["cuda"], out["cpu"]
+    assert pa == pb and np.array_equal(oa, ob)
+    valid = mask[oa]
+    assert bij_agreement(la[valid], lb[valid]) >= 0.99
+    t = struth[oa][valid]
+    assert abs(bij_agreement(t, la[valid]) - bij_agreement(t, lb[valid])) \
+        < 0.01
