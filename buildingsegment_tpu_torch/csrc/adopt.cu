@@ -183,7 +183,7 @@ __global__ void __launch_bounds__(kReduceThreads)
 adopt_reduce_kernel(const float* __restrict__ partial,
                     const uint8_t* __restrict__ bflag,
                     const uint8_t* __restrict__ lflag,
-                    float* __restrict__ acc128, int nblk) {
+                    float* __restrict__ acc128, int nblk, int accumulate) {
   __shared__ float stage[kReduceThreads * kStride];
   __shared__ int wsum[kReduceWarps];
   const int l = blockIdx.x;
@@ -203,7 +203,9 @@ adopt_reduce_kernel(const float* __restrict__ partial,
   };
   float v[kCols];
   bool touched = load(0, v);
-  float acc = 0.f;  // thread t < kCols: column t
+  // thread t < kCols: column t, from +0 or (accumulate) from the lane's
+  // row already in acc128: a shard continuing the shards before it
+  float acc = accumulate && t < kCols ? acc128[l * kCols + t] : 0.f;
   for (int b0 = 0; b0 < nblk; b0 += kReduceThreads) {
     const unsigned bal = __ballot_sync(0xffffffffu, touched);
     if ((t & 31) == 0) wsum[t >> 5] = __popc(bal);
@@ -243,7 +245,8 @@ extern "C" int bst_adopt(const float* payload, const uint8_t* holes,
                          const float* table, const int* rowlut,
                          uint8_t* adopted, int* row_out, float* partial,
                          uint8_t* bflag, uint8_t* lflag, float* acc128, int n,
-                         float th, float cth, int sgn, void* stream_ptr) {
+                         float th, float cth, int sgn, int accumulate,
+                         void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n <= 0) return cudaErrorInvalidValue;
   const int nblk = (n + kAdoptRows - 1) / kAdoptRows;
@@ -252,7 +255,7 @@ extern "C" int bst_adopt(const float* payload, const uint8_t* holes,
       n, th, cth, sgn);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  adopt_reduce_kernel<<<kK, kReduceThreads, 0, stream>>>(partial, bflag,
-                                                          lflag, acc128, nblk);
+  adopt_reduce_kernel<<<kK, kReduceThreads, 0, stream>>>(
+      partial, bflag, lflag, acc128, nblk, accumulate);
   return static_cast<int>(cudaGetLastError());
 }

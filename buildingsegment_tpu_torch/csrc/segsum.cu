@@ -159,7 +159,7 @@ __global__ void __launch_bounds__(kReduceThreads)
 paymom_reduce_kernel(const float* __restrict__ partial,
                      const uint8_t* __restrict__ touched,
                      float* __restrict__ sums, float* __restrict__ moments,
-                     int nblk, int bound) {
+                     int nblk, int bound, int accumulate) {
   __shared__ float stage[kReduceThreads * kStageStride];
   const int s = blockIdx.x;
   const int t = threadIdx.x;
@@ -181,7 +181,15 @@ paymom_reduce_kernel(const float* __restrict__ partial,
   };
   float v[kSumCols];
   load(0, v);
-  float acc = 0.f;  // thread t < kSumCols: column t
+  // thread t < kSumCols: column t, from +0 or (accumulate) from the row
+  // already in the table: a shard continuing the shards before it
+  float acc = 0.f;
+  if (accumulate) {
+    if (t < 8)
+      acc = sums[s * 8 + t];
+    else if (t < kSumCols)
+      acc = moments[s * 6 + t - 8];
+  }
   for (int b0 = 0; b0 < nblk; b0 += kReduceThreads) {
 #pragma unroll
     for (int c = 0; c < kSumCols; ++c) stage[t * kStageStride + c] = v[c];
@@ -345,10 +353,11 @@ extern "C" {
 
 // partial: f32[nblk, bound, 16], touched: u8[nblk, bound] scratch, nblk =
 // ceil(n / kPaymomRows); sums f32[>= bound, 8] and moments f32[>= bound, 6]
-// get rows < bound.
+// get rows < bound: the block tables' sum, added onto the rows already
+// there when accumulate is nonzero.
 int bst_paymom(const int* ids, const float* payload, const float* q, int nq,
                float* partial, uint8_t* touched, float* sums, float* moments,
-               int n, int bound, void* stream_ptr) {
+               int n, int bound, int accumulate, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n <= 0 || bound < 0 || bound >= block_fold::kNoId)
     return cudaErrorInvalidValue;
@@ -362,7 +371,7 @@ int bst_paymom(const int* ids, const float* payload, const float* q, int nq,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   paymom_reduce_kernel<<<bound, kReduceThreads, 0, stream>>>(
-      partial, touched, sums, moments, nblk, bound);
+      partial, touched, sums, moments, nblk, bound, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 

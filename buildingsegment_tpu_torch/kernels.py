@@ -173,9 +173,10 @@ def _bind() -> None:
     lib.bst_refine_sweep.argtypes = (
         [_P] * 9 + [_I, _P, _I, _I, _F, _F, _F, _I, _I, _I, _P]
     )
-    lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P]
+    lib.bst_paymom.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                               _P]
     lib.bst_lookup.argtypes = [_P, _P, _I, _P, _I, _P]
-    lib.bst_adopt.argtypes = [_P] * 10 + [_I, _F, _F, _I, _P]
+    lib.bst_adopt.argtypes = [_P] * 10 + [_I, _F, _F, _I, _I, _P]
     lib.bst_knn_exact.argtypes = [_P] * 11 + [_I] * 5 + [_P]
     lib.bst_plane_sums.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _P]
     lib.bst_stats_mxu.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
@@ -507,7 +508,8 @@ def refine_sweep_cuda(pos, nrm, mask, pid, table, n_live, *, w, th_thickness,
     return out
 
 
-def payload_moment_sums_cuda(ids, payload, q, n_live, *, table_cap):
+def payload_moment_sums_cuda(ids, payload, q, n_live, *, table_cap,
+                             init=None):
     """CUDA payload sums + second moments (csrc/segsum.cu); see
     :func:`buildingsegment_tpu_torch.ops.segsum.plane_payload_moment_sums`."""
     n = ids.shape[0]
@@ -517,8 +519,15 @@ def payload_moment_sums_cuda(ids, payload, q, n_live, *, table_cap):
     cap128 = ceil128(table_cap)
     bound = min(ceil128(n_live), cap128)
     dev = ids.device
-    sums = torch.zeros((cap128, 8), dtype=torch.float32, device=dev)
-    moments = torch.zeros((cap128, 6), dtype=torch.float32, device=dev)
+    if init is None:
+        sums = torch.zeros((cap128, 8), dtype=torch.float32, device=dev)
+        moments = torch.zeros((cap128, 6), dtype=torch.float32, device=dev)
+    else:
+        # the reduce adds the block tables onto the rows already there
+        sums = _cuda_tensor(init[0], torch.float32, (cap128, 8),
+                            "init sums").clone()
+        moments = _cuda_tensor(init[1], torch.float32, (cap128, 6),
+                               "init moments").clone()
     if bound == 0:  # no live id: nothing to sum, nothing launched
         return sums, moments
     if bound >= FOLD_ID_LIMIT:
@@ -532,7 +541,7 @@ def payload_moment_sums_cuda(ids, payload, q, n_live, *, table_cap):
     err = lib.bst_paymom(
         ids.data_ptr(), payload.data_ptr(), q.data_ptr(), q.shape[0],
         partial.data_ptr(), touched.data_ptr(), sums.data_ptr(),
-        moments.data_ptr(), n, bound, _stream(ids),
+        moments.data_ptr(), n, bound, int(init is not None), _stream(ids),
     )
     _check(lib, err, "payload_moment_sums")
     launch_counts["payload_moment_sums"] += 1
@@ -616,7 +625,7 @@ def plane_sums_cuda(ids, payload, n_live, *, table_cap):
 
 
 def plane_adopt_cuda(payload, holes, table, rows, *, th_thickness, th_cos,
-                     signed=False):
+                     signed=False, init=None):
     """CUDA hole adoption (csrc/adopt.cu); see
     :func:`buildingsegment_tpu_torch.ops.adopt.plane_adopt`.  ``table``
     is the f32[10, 128] lane table of ``ops.adopt.adopt_table``."""
@@ -638,13 +647,19 @@ def plane_adopt_cuda(payload, holes, table, rows, *, th_thickness, th_cos,
     scratch = torch.empty(part_bytes + nblk * (1 + ADOPT_LANES),
                           dtype=torch.uint8, device=dev)
     base = scratch.data_ptr()
-    acc = torch.empty((ADOPT_LANES, 8), dtype=torch.float32, device=dev)
+    if init is None:
+        acc = torch.empty((ADOPT_LANES, 8), dtype=torch.float32, device=dev)
+    else:
+        # the reduce adds the block sums onto the lane rows already there
+        acc = _cuda_tensor(init, torch.float32, (ADOPT_LANES, 8),
+                           "init").clone()
     lib = _load()
     err = lib.bst_adopt(
         payload.data_ptr(), holes_u8.data_ptr(), table.data_ptr(),
         rows.data_ptr(), adopted.data_ptr(), row.data_ptr(), base,
         base + part_bytes, base + part_bytes + nblk, acc.data_ptr(), n,
-        th_thickness, th_cos, int(signed), _stream(row),
+        th_thickness, th_cos, int(signed), int(init is not None),
+        _stream(row),
     )
     _check(lib, err, "plane_adopt")
     launch_counts["plane_adopt"] += 1

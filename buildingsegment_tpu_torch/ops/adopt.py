@@ -13,7 +13,8 @@ component rows (:func:`adopt_table`) and each dot product is written out
 (``csrc/adopt.cu``).  The plain version computes the dot products in
 the kernel's order and sums the lanes in the kernel's fixed block order
 (``kernels.ADOPT_ROWS`` rows per block, row order inside a block, blocks
-in order), so the two agree bit for bit.
+in order), so the two agree bit for bit.  With ``init`` the block sums
+are added onto it (a shard continuing the shards before it).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ def adopt_table(nk, ck, bk, ccdk, reach2, lane_ok) -> torch.Tensor:
 
 def plane_adopt_reference(
     payload, holes, table, rows, *, th_thickness, th_cos, signed=False,
+    init=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`plane_adopt` (the XLA hole fill of
     ``seg/coarse.py``, dots in the kernel's order)."""
@@ -51,7 +53,10 @@ def plane_adopt_reference(
     dev = holes.device
     adopted = torch.zeros(n, dtype=torch.bool, device=dev)
     row = torch.zeros(n, dtype=torch.int32, device=dev)
-    acc = torch.zeros((_K, 8), dtype=torch.float32, device=dev)
+    if init is None:
+        acc = torch.zeros((_K, 8), dtype=torch.float32, device=dev)
+    else:
+        acc = init.float().clone()
     idx = torch.nonzero(holes)[:, 0]
     if idx.numel() == 0:
         return adopted, row, acc
@@ -78,12 +83,12 @@ def plane_adopt_reference(
     sel = idx[got]
     nblk = -(-n // kernels.ADOPT_ROWS)
     acc = block_order_sums(sel // kernels.ADOPT_ROWS, lane[got],
-                           payload[sel], nblk, _K)
+                           payload[sel], nblk, _K, init=acc)
     return adopted, row, acc
 
 
 def plane_adopt(payload, holes, table, rows, *, th_thickness, th_cos,
-                signed=False):
+                signed=False, init=None):
     """Adopt unlabeled rows into the top-K merged plane table.
 
     Args:
@@ -91,6 +96,7 @@ def plane_adopt(payload, holes, table, rows, *, th_thickness, th_cos,
         holes: bool[n] candidate rows (valid and unlabeled).
         table: f32[10, 128] from :func:`adopt_table`.
         rows: int32[128] the merged-root row of each lane.
+        init: None, or f32[128, 8] lane sums the adoption sums add onto.
 
     Returns (adopted bool[n], row int32[n] — the root row each adopted
     row joins, 0 elsewhere — and the per-LANE adoption payload sums
@@ -98,7 +104,8 @@ def plane_adopt(payload, holes, table, rows, *, th_thickness, th_cos,
     :func:`plane_adopt_reference`.
     """
     args = (payload, holes, table, rows)
-    kw = dict(th_thickness=th_thickness, th_cos=th_cos, signed=signed)
+    kw = dict(th_thickness=th_thickness, th_cos=th_cos, signed=signed,
+              init=init)
     if holes.is_cuda:
         return kernels.plane_adopt_cuda(*args, **kw)
     return plane_adopt_reference(*args, **kw)

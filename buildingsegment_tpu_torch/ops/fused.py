@@ -13,6 +13,11 @@ Exactness notes (held by tests/test_torch_fused.py):
   * squared distances are ``dx*dx + dy*dy + dz*dz`` in JAX's order and
     the moments accumulate slot by slot in slot order, as JAX's unrolled
     loop does.
+
+Sharded (``group``, the JAX package's ``axis_name``): the window
+padding is the ring neighbours' rows (:meth:`ShardGroup.halo_pad`,
+−3e7 / False past the global edges) and neighbour indices come back in
+the global sorted frame.
 """
 
 from __future__ import annotations
@@ -87,8 +92,10 @@ def window_moments(
     radius: float,
     max_nn: Optional[int],
     keep: int,
+    group=None,
 ):
-    """The fused sweep's ranked distances and moments.
+    """The fused sweep's ranked distances and moments (``group``: this
+    rank's rows, the neighbours' rows as window padding).
 
     Returns (the ``keep`` smallest squared candidate distances per row,
     ascending, +inf where fewer candidates are valid, f32[N, keep]; their
@@ -98,10 +105,16 @@ def window_moments(
     n = spos.shape[0]
     w2 = 2 * window
     dev = spos.device
-    fill = torch.full((window,), _PAD, dtype=torch.float32, device=dev)
-    comps = [torch.cat([fill, spos[:, d].float(), fill]) for d in range(3)]
-    off = torch.zeros(window, dtype=torch.bool, device=dev)
-    pmask = torch.cat([off, smask, off])
+    if group is None:
+        fill = torch.full((window,), _PAD, dtype=torch.float32, device=dev)
+        comps = [torch.cat([fill, spos[:, d].float(), fill])
+                 for d in range(3)]
+        off = torch.zeros(window, dtype=torch.bool, device=dev)
+        pmask = torch.cat([off, smask, off])
+    else:
+        ppos = group.halo_pad(spos.float(), window, fill=_PAD)
+        comps = [ppos[:, d].contiguous() for d in range(3)]
+        pmask = group.halo_pad(smask, window, fill=False)
     r2 = float(np.float32(radius) * np.float32(radius))
     cap_active = max_nn is not None and (max_nn - 1) < w2
 
@@ -166,6 +179,7 @@ def knn_normals_window_sorted(
     radius: float = 100.0,
     orient_z: bool = True,
     max_nn: Optional[int] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused sweep → (neigh_idx int32[N, k], neigh_sq_dist f32[N, k],
     normals f32[N, 3], curvature f32[N]).
@@ -180,20 +194,26 @@ def knn_normals_window_sorted(
             use the ``max_nn`` nearest candidates (incl. self) within
             ``radius``.  None, or a cap wider than the window, keeps
             every in-radius candidate.
+        group: a ``dist.ShardGroup``: ``spos``/``smask`` are this rank's
+            rows of the globally sorted cloud, the window reads the
+            neighbours' rows, and ``neigh_idx`` holds global sorted rows.
     """
     if 2 * window < k - 1:
         raise ValueError(f"window {window} too small for k={k}")
     nb_d, arg, s0, s1, s2 = window_moments(
-        spos, smask, window=window, radius=radius, max_nn=max_nn, keep=k - 1
+        spos, smask, window=window, radius=radius, max_nn=max_nn, keep=k - 1,
+        group=group,
     )
-    nb_i, nb_d = window_neighbors(nb_d, arg, smask, window)
+    row_base = 0 if group is None else group.rank * spos.shape[0]
+    nb_i, nb_d = window_neighbors(nb_d, arg, smask, window, row_base)
     v, curvature = finish_normals(s0, s1, s2, orient_z=orient_z)
     return nb_i, nb_d, v, curvature
 
 
-def window_neighbors(nb_d, arg, smask, window: int):
+def window_neighbors(nb_d, arg, smask, window: int, row_base: int = 0):
     """kNN finish of a window ranking: slot → row offset, self at slot 0,
-    empty (+inf) slots and masked rows → self with distance 0.
+    empty (+inf) slots and masked rows → self with distance 0; rows are
+    numbered from ``row_base`` (a shard's first global row).
 
     Returns (neigh_idx int32[N, k], neigh_sq_dist f32[N, k]) for the
     ascending distances ``nb_d`` f32[N, k−1] and their slots ``arg``.
@@ -201,7 +221,8 @@ def window_neighbors(nb_d, arg, smask, window: int):
     n = nb_d.shape[0]
     dev = nb_d.device
     offs = torch.where(arg < window, arg - window, arg - window + 1)
-    rows = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    rows = torch.arange(row_base, row_base + n, dtype=torch.int64,
+                        device=dev)[:, None]
     nb_i = rows + offs
     invalid = torch.isinf(nb_d)
     nb_i = torch.where(invalid, rows, nb_i)

@@ -20,12 +20,15 @@ chunk still count.  The port keeps that rule.
 Summation order (kernel and plain version alike): block b of
 ``kernels.PAYMOM_ROWS`` (``kernels.SEGSUM_ROWS`` for ``plane_sums``)
 rows sums its rows in row order into its own partial table, then the
-partial tables are added in block order.
+partial tables are added in block order — onto 0, or onto ``init``
+(``plane_payload_moment_sums``): a shard continuing the sums of the
+shards before it, which for a shard of whole blocks gives the one-device
+sums.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,8 +44,8 @@ __all__ = [
 ]
 
 
-def row_order_sums(idx: torch.Tensor, rows: torch.Tensor,
-                   size: int) -> torch.Tensor:
+def row_order_sums(idx: torch.Tensor, rows: torch.Tensor, size: int,
+                   init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[size, C] per-id sums of ``rows`` [M, C], each id's rows added to
     0.0 one after another in row order, so the sums do not change from
     run to run.  On the CPU ``index_add_`` walks the rows in order (the
@@ -52,42 +55,59 @@ def row_order_sums(idx: torch.Tensor, rows: torch.Tensor,
     float atomics).  That holds for rows of 2 columns or more: a single
     column goes to a kernel that sums runs of 32 or more equal ids in
     warp-strided partials, so one column is summed as two (a zero column
-    beside it) and sliced back."""
+    beside it) and sliced back.
+
+    ``init`` [size, C]: each id's sum starts from its row of ``init``
+    instead (a shard continuing the sums of the shards before it); on the
+    card its rows go first in the same sort, so they are added first."""
     cols = rows.shape[1]
     if rows.is_cuda:
+        if init is not None:
+            idx = torch.cat([torch.arange(size, dtype=idx.dtype,
+                                          device=idx.device), idx])
+            rows = torch.cat([init.to(rows.dtype), rows], 0)
         if cols == 1:
             rows = torch.cat([rows, torch.zeros_like(rows)], 1)
         out = torch.zeros((size, rows.shape[1]), dtype=rows.dtype,
                           device=rows.device)
         return out.index_put_((idx,), rows, accumulate=True)[:, :cols]
+    if init is not None:
+        return init.to(rows.dtype).clone().index_add_(0, idx, rows)
     out = torch.zeros((size, cols), dtype=rows.dtype, device=rows.device)
     return out.index_add_(0, idx, rows)
 
 
 def block_order_sums(key_block: torch.Tensor, key_id: torch.Tensor,
-                     rows: torch.Tensor, nblk: int, size: int) -> torch.Tensor:
+                     rows: torch.Tensor, nblk: int, size: int,
+                     init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[size, C] sums of ``rows`` [M, C] by id, each block's rows added in
     row order into its own table (:func:`row_order_sums`), then the block
-    tables added in block order."""
+    tables added in block order onto zeros, or onto ``init`` [size, C]."""
     part = row_order_sums(key_block * size + key_id, rows, nblk * size)
     part = part.view(nblk, size, rows.shape[1])
-    acc = torch.zeros((size, rows.shape[1]), dtype=rows.dtype,
-                      device=rows.device)
+    if init is None:
+        acc = torch.zeros((size, rows.shape[1]), dtype=rows.dtype,
+                          device=rows.device)
+    else:
+        acc = init.to(rows.dtype)
     for b in range(nblk):
         acc = acc + part[b]
     return acc
 
 
 def payload_moment_sums_reference(
-    ids, payload, q, n_live, *, table_cap,
+    ids, payload, q, n_live, *, table_cap, init=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`plane_payload_moment_sums`."""
     n = ids.shape[0]
     dev = ids.device
     cap128 = kernels.ceil128(table_cap)
     bound = min(kernels.ceil128(n_live), cap128)
-    sums = torch.zeros((cap128, 8), dtype=torch.float32, device=dev)
-    moments = torch.zeros((cap128, 6), dtype=torch.float32, device=dev)
+    if init is None:
+        sums = torch.zeros((cap128, 8), dtype=torch.float32, device=dev)
+        moments = torch.zeros((cap128, 6), dtype=torch.float32, device=dev)
+    else:
+        sums, moments = (t.float().clone() for t in init)
     live = (ids >= 0) & (ids < bound)
     if bound == 0 or not bool(live.any()):
         return sums, moments
@@ -103,13 +123,15 @@ def payload_moment_sums_reference(
                       1)
     nblk = -(-n // kernels.PAYMOM_ROWS)
     acc = block_order_sums(rows // kernels.PAYMOM_ROWS, s,
-                           torch.cat([pay, mom], 1), nblk, bound)
+                           torch.cat([pay, mom], 1), nblk, bound,
+                           init=torch.cat([sums[:bound], moments[:bound]], 1))
     sums[:bound] = acc[:, :8]
     moments[:bound] = acc[:, 8:]
     return sums, moments
 
 
-def plane_payload_moment_sums(ids, payload, q, n_live, *, table_cap):
+def plane_payload_moment_sums(ids, payload, q, n_live, *, table_cap,
+                              init=None):
     """Payload sums and second moments about per-id centers, one pass.
 
     Args:
@@ -119,6 +141,8 @@ def plane_payload_moment_sums(ids, payload, q, n_live, *, table_cap):
         q: f32[Q, 3] per-id reference centers (ids ≥ Q center at 0).
         n_live: live-id bound (host int).
         table_cap: table capacity, rounded up to 128.
+        init: None, or (sums, moments) of the same shapes as the result:
+            the block tables are added onto these (module docstring).
 
     Returns (sums f32[cap128, 8], moments f32[cap128, 6]); moment columns
     are (xx, yy, zz, xy, xz, yz) of p − q[id].  CUDA tensors launch the
@@ -126,9 +150,9 @@ def plane_payload_moment_sums(ids, payload, q, n_live, *, table_cap):
     """
     if ids.is_cuda:
         return kernels.payload_moment_sums_cuda(
-            ids, payload, q, n_live, table_cap=table_cap)
+            ids, payload, q, n_live, table_cap=table_cap, init=init)
     return payload_moment_sums_reference(
-        ids, payload, q, n_live, table_cap=table_cap)
+        ids, payload, q, n_live, table_cap=table_cap, init=init)
 
 
 def table_lookup_reference(ids, lut, n_live) -> torch.Tensor:

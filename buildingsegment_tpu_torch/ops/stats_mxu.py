@@ -43,6 +43,12 @@ blocks in chunks so that no [blocks, C, 128] tensor outgrows memory.
 Against the JAX kernels: bit for bit while every intermediate is an
 exact f32 integer (coordinates < 256); at building span within
 ``tests/test_stats_mxu.py``'s bounds (tests/test_torch_mxu.py).
+
+Sharded (``group``): a block's result depends on where the block
+starts, so the halo is :func:`mxu_halo` rows a side — w rounded up to a
+whole block — and the shard a whole number of blocks: the padded rows'
+blocks then are the one-device blocks, and the S middle rows come back
+with the one-device bits.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from buildingsegment_tpu_torch import kernels
 
 __all__ = [
     "stats_mxu", "stats_mxu_reference", "seed_sweep_mxu",
-    "seed_sweep_mxu_reference", "mxu_ranks", "mxu_r2",
+    "seed_sweep_mxu_reference", "mxu_ranks", "mxu_r2", "mxu_halo",
 ]
 
 #: query rows per block (the TPU kernel's 128 lanes)
@@ -74,6 +80,29 @@ _CHUNK_ELEMS = 1 << 25
 
 def _blocks(n: int) -> int:
     return -(-n // MXU_BLOCK)
+
+
+def mxu_halo(w: int) -> int:
+    """Halo rows a side of a sharded block-form sweep: w rounded up to a
+    whole block, so the shard's blocks keep their one-device starts."""
+    return _blocks(w) * MXU_BLOCK
+
+
+def _middle(group, w: int, rows: torch.Tensor, out):
+    """The S middle rows of a sweep over :func:`mxu_halo` halo-padded
+    rows (all rows without a group)."""
+    if group is None:
+        return out
+    h = mxu_halo(w)
+    n = rows.shape[0] - 2 * h
+    if n <= 0 or n % MXU_BLOCK:
+        raise ValueError(
+            f"sharded block-form sweep: {rows.shape[0]} rows are not a "
+            f"shard of whole {MXU_BLOCK}-row blocks with {h} halo rows a "
+            "side")
+    if isinstance(out, tuple):
+        return tuple(o[h:h + n] for o in out)
+    return out[h:h + n]
 
 
 def _gather_blocks(rows: Sequence[torch.Tensor], fills, w: int,
@@ -199,16 +228,20 @@ def stats_mxu_reference(
     return out[0], out[1], out[2:5].T, out[5:11].T
 
 
-def stats_mxu(pos, mask, *, k, w, radius, max_nn):
+def stats_mxu(pos, mask, *, k, w, radius, max_nn, group=None):
     """Block-form stats sweep → (kth_sq_dist f32[n], s0 f32[n], s1 f32[n,
     3], s2 f32[n, 6]), the contract of
     :func:`buildingsegment_tpu_torch.ops.stats_sweep.stats_sweep` in the
-    module docstring's rounding.  CUDA tensors launch the CUDA kernel,
-    CPU tensors run :func:`stats_mxu_reference`."""
+    module docstring's rounding.  With ``group`` the columns hold
+    :func:`mxu_halo` rows a side and the S middle rows come back.  CUDA
+    tensors launch the CUDA kernel, CPU tensors run
+    :func:`stats_mxu_reference`."""
     kw = dict(k=k, w=w, radius=radius, max_nn=max_nn)
     if mask.is_cuda:
-        return kernels.stats_mxu_cuda(pos, mask, **kw)
-    return stats_mxu_reference(pos, mask, **kw)
+        out = kernels.stats_mxu_cuda(pos, mask, **kw)
+    else:
+        out = stats_mxu_reference(pos, mask, **kw)
+    return _middle(group, w, mask, out)
 
 
 def seed_sweep_mxu_reference(
@@ -250,14 +283,18 @@ def seed_sweep_mxu_reference(
 
 
 def seed_sweep_mxu(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
-                   signed=False) -> torch.Tensor:
+                   signed=False, group=None) -> torch.Tensor:
     """The depth-0 seed rule in block form → bool[n] seeds: the contract
     of :func:`buildingsegment_tpu_torch.ops.window_sweep.seed_sweep` in
-    the module docstring's rounding.  CUDA tensors launch the CUDA
-    kernel, CPU tensors run :func:`seed_sweep_mxu_reference`."""
+    the module docstring's rounding.  With ``group`` the columns hold
+    :func:`mxu_halo` rows a side and the S middle rows come back.  CUDA
+    tensors launch the CUDA kernel, CPU tensors run
+    :func:`seed_sweep_mxu_reference`."""
     args = (pos, nrm, mask, dk)
     kw = dict(w=w, th_thickness=th_thickness, th_normal_cos=th_normal_cos,
               signed=signed)
     if mask.is_cuda:
-        return kernels.seed_mxu_cuda(*args, **kw)
-    return seed_sweep_mxu_reference(*args, **kw)
+        out = kernels.seed_mxu_cuda(*args, **kw)
+    else:
+        out = seed_sweep_mxu_reference(*args, **kw)
+    return _middle(group, w, mask, out)

@@ -12,6 +12,10 @@ version takes them from the fused sweep's stable sort
 (:func:`buildingsegment_tpu_torch.ops.fused.window_moments`).  Order
 statistics are values, so both give the same bits; the moments
 accumulate in slot order in both, so they agree bit for bit too.
+
+Sharded (``group``): the sweep runs on the shard's rows with the ring
+neighbours' rows as halos (the JAX package's ``axis_name``), see
+:func:`knn_normals_window_stats`.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 
 from buildingsegment_tpu_torch import kernels
 from buildingsegment_tpu_torch.ops.fused import finish_normals, window_moments
-from buildingsegment_tpu_torch.ops.stats_mxu import stats_mxu
+from buildingsegment_tpu_torch.ops.stats_mxu import mxu_halo, stats_mxu
+from buildingsegment_tpu_torch.ops.window_sweep import POS_FILL
 
 __all__ = [
     "stats_sweep", "stats_sweep_reference", "knn_normals_window_stats",
@@ -53,7 +58,7 @@ def stats_sweep_reference(
     return dk, s0, s1, s2
 
 
-def stats_sweep(pos, mask, *, k, w, radius, max_nn):
+def stats_sweep(pos, mask, *, k, w, radius, max_nn, group=None):
     """One stats sweep → (kth_sq_dist f32[n], s0 f32[n], s1 f32[n, 3],
     s2 f32[n, 6]).
 
@@ -63,13 +68,20 @@ def stats_sweep(pos, mask, *, k, w, radius, max_nn):
     row is masked); the moments (count incl. self, offset sums, second
     moments xx yy zz xy xz yz about the row) run over the candidates
     within ``radius`` and, when ``max_nn − 1 < 2w``, no farther than the
-    (max_nn−1)-th nearest.  CUDA tensors launch the CUDA kernel, CPU
+    (max_nn−1)-th nearest.  With ``group`` the columns hold w halo rows
+    a side (position −3e7, mask False past the global edges) and the S
+    middle rows come back.  CUDA tensors launch the CUDA kernel, CPU
     tensors run :func:`stats_sweep_reference`.
     """
     kw = dict(k=k, w=w, radius=radius, max_nn=max_nn)
     if mask.is_cuda:
-        return kernels.stats_sweep_cuda(pos, mask, **kw)
-    return stats_sweep_reference(pos, mask, **kw)
+        out = kernels.stats_sweep_cuda(pos, mask, **kw)
+    else:
+        out = stats_sweep_reference(pos, mask, **kw)
+    if group is None:
+        return out
+    n = mask.shape[0] - 2 * w
+    return tuple(o[w:w + n] for o in out)
 
 
 def knn_normals_window_stats(
@@ -82,19 +94,30 @@ def knn_normals_window_stats(
     orient_z: bool = True,
     max_nn=None,
     rank_mode=None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stats-only sweep → (kth_sq_dist f32[N], normals f32[N, 3],
     curvature f32[N]); ``kth_sq_dist`` equals the fused sweep's
     ``neigh_sq_dist[:, k−1]`` and the normals/curvature its outputs.
     ``rank_mode`` is one of :data:`RANK_MODES`; "mxu" runs the
-    block-form variant (the config's ``stats_rank_mode``)."""
+    block-form variant (the config's ``stats_rank_mode``).  With
+    ``group`` (a ``dist.ShardGroup``) ``spos``/``smask`` are this rank's
+    rows of the globally sorted cloud; the sweep reads the neighbours'
+    rows through a ring halo and gives the one-device result of these
+    rows."""
     if rank_mode not in RANK_MODES:
         raise ValueError(f"rank_mode={rank_mode!r}, expected one of "
                          f"{RANK_MODES}")
     sweep = stats_mxu if rank_mode == "mxu" else stats_sweep
-    pos = tuple(spos[:, d].float().contiguous() for d in range(3))
+    spos = spos.float()
+    if group is not None:
+        h = mxu_halo(window) if rank_mode == "mxu" else window
+        spos = group.halo_pad(spos, h, fill=POS_FILL)
+        smask = group.halo_pad(smask, h, fill=False)
+    pos = tuple(spos[:, d].contiguous() for d in range(3))
+    shard = {} if group is None else {"group": group}
     dk, s0, s1, s2 = sweep(
-        pos, smask, k=k, w=window, radius=radius, max_nn=max_nn
+        pos, smask, k=k, w=window, radius=radius, max_nn=max_nn, **shard
     )
     normals, curvature = finish_normals(s0, s1, s2, orient_z=orient_z)
     return dk, normals, curvature

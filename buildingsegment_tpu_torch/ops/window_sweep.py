@@ -26,6 +26,15 @@ agree bit for bit.
 (``csrc/refine_sweep.cu``) take the same SoA inputs; see their
 docstrings.  Both are min/or chains over identical f32 operations, so
 kernel and plain version agree bit for bit.
+
+Sharded (``group``, a :class:`~buildingsegment_tpu_torch.dist.ShardGroup`):
+every input column carries w halo rows each side, the ring neighbours'
+rows or past the global edges the column's one-device fill
+(:func:`halo_columns` for the columns that stay fixed over a level,
+``group.halo_pad`` for the rest), and the sweep runs the same kernel on
+those S + 2w rows and returns the middle S.  Each middle row sees the
+candidates it sees on one device, so the result is the one-device
+result of those rows (the JAX package's ``make_slab(..., axis_name)``).
 """
 
 from __future__ import annotations
@@ -39,9 +48,37 @@ from buildingsegment_tpu_torch import kernels
 __all__ = [
     "label_sweep", "label_sweep_reference", "seed_sweep",
     "seed_sweep_reference", "refine_sweep", "refine_sweep_reference",
+    "halo_columns", "POS_FILL",
 ]
 
-_POS_FILL = -3e7
+#: the position of a row outside the cloud (the slab fill)
+POS_FILL = -3e7
+
+
+def halo_columns(group, w: int, pos, nrm, mask):
+    """The static columns of a window sweep with ``w`` halo rows a side:
+    ((x, y, z), (nx, ny, nz), mask) of S + 2w rows, in one ring exchange
+    (positions filled with :data:`POS_FILL`, normals with 0, the mask with
+    False past the global edges)."""
+    cols = torch.stack([*pos, *nrm, mask.float()], 1)
+    pad = group.halo_pad(cols, w, fill=[POS_FILL] * 3 + [0.0] * 4)
+    return (tuple(pad[:, d].contiguous() for d in range(3)),
+            tuple(pad[:, 3 + d].contiguous() for d in range(3)),
+            pad[:, 6] > 0.5)
+
+
+def _middle(group, w: int, rows: torch.Tensor, out):
+    """The S middle rows of a sweep's outputs over S + 2w halo-padded
+    rows (all of them without a group)."""
+    if group is None:
+        return out
+    if rows.shape[0] <= 2 * w:
+        raise ValueError(f"sharded sweep: {rows.shape[0]} rows do not hold "
+                         f"w={w} halo rows a side")
+    n = rows.shape[0] - 2 * w
+    if isinstance(out, tuple):
+        return tuple(o[w:w + n] for o in out)
+    return out[w:w + n]
 
 
 def _pad(a: torch.Tensor, w: int, fill) -> torch.Tensor:
@@ -72,7 +109,7 @@ def label_sweep_reference(
     nx, ny, nz = nrm
     mnx, mny, mnz = model_n
     mcx, mcy, mcz = model_c
-    ppx, ppy, ppz = (_pad(a, w, _POS_FILL) for a in pos)
+    ppx, ppy, ppz = (_pad(a, w, POS_FILL) for a in pos)
     pmnx, pmny, pmnz = (_pad(a, w, 0.0) for a in model_n)
     pmcx, pmcy, pmcz = (_pad(a, w, 0.0) for a in model_c)
     plab = _pad(label, w, inf_label)
@@ -113,14 +150,17 @@ def label_sweep_reference(
 
 def label_sweep(
     pos, nrm, model_n, model_c, label, mask, *, w, th_thickness,
-    th_normal_cos, edge_gate2, inf_label, signed=False,
+    th_normal_cos, edge_gate2, inf_label, signed=False, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One label-propagation sweep → (hop label int32[n], merge hook
     int32[n]; ``inf_label`` = none).
 
     ``pos``/``nrm``/``model_n``/``model_c`` are (x, y, z) triples of
-    f32[n]; ``label`` int32[n]; ``mask`` bool[n].  CUDA tensors launch
-    the CUDA kernel, CPU tensors run :func:`label_sweep_reference`.
+    f32[n]; ``label`` int32[n]; ``mask`` bool[n].  With ``group`` every
+    column holds w halo rows a side (fills: position −3e7, normal and
+    model 0, label ``inf_label``, mask False) and the S middle rows come
+    back (module docstring).  CUDA tensors launch the CUDA kernel, CPU
+    tensors run :func:`label_sweep_reference`.
     """
     args = (pos, nrm, model_n, model_c, label, mask)
     kw = dict(
@@ -128,8 +168,10 @@ def label_sweep(
         edge_gate2=edge_gate2, inf_label=inf_label, signed=signed,
     )
     if label.is_cuda:
-        return kernels.label_sweep_cuda(*args, **kw)
-    return label_sweep_reference(*args, **kw)
+        out = kernels.label_sweep_cuda(*args, **kw)
+    else:
+        out = label_sweep_reference(*args, **kw)
+    return _middle(group, w, label, out)
 
 
 def seed_sweep_reference(
@@ -141,7 +183,7 @@ def seed_sweep_reference(
     cmag = (lambda x: x) if signed else torch.abs
     px, py, pz = pos
     nx, ny, nz = nrm
-    ppx, ppy, ppz = (_pad(a, w, _POS_FILL) for a in pos)
+    ppx, ppy, ppz = (_pad(a, w, POS_FILL) for a in pos)
     pnx, pny, pnz = (_pad(a, w, 0.0) for a in nrm)
     pmask = _pad(mask, w, False)
     bad = torch.zeros(n, dtype=torch.bool, device=mask.device)
@@ -159,21 +201,26 @@ def seed_sweep_reference(
 
 
 def seed_sweep(pos, nrm, mask, dk, *, w, th_thickness, th_normal_cos,
-               signed=False) -> torch.Tensor:
+               signed=False, group=None) -> torch.Tensor:
     """The depth-0 seed rule over ±w rows → bool[n] seeds.
 
     Row i is a seed iff it is valid and no valid window candidate j with
     |p_j − p_i|² ≤ dk_i fails |(p_j − p_i)·n_i| ≤ th and |n_j·n_i| ≥ cos.
     ``pos``/``nrm`` are (x, y, z) triples of f32[n], ``mask`` bool[n],
-    ``dk`` f32[n] the squared k-th-NN ball.  CUDA tensors launch the
-    CUDA kernel, CPU tensors run :func:`seed_sweep_reference`.
+    ``dk`` f32[n] the squared k-th-NN ball.  With ``group`` every column
+    holds w halo rows a side (a candidate's ``dk`` is never read, so its
+    halo rows may hold anything) and the S middle rows come back.  CUDA
+    tensors launch the CUDA kernel, CPU tensors run
+    :func:`seed_sweep_reference`.
     """
     args = (pos, nrm, mask, dk)
     kw = dict(w=w, th_thickness=th_thickness, th_normal_cos=th_normal_cos,
               signed=signed)
     if mask.is_cuda:
-        return kernels.seed_sweep_cuda(*args, **kw)
-    return seed_sweep_reference(*args, **kw)
+        out = kernels.seed_sweep_cuda(*args, **kw)
+    else:
+        out = seed_sweep_reference(*args, **kw)
+    return _middle(group, w, mask, out)
 
 
 def refine_sweep_reference(
@@ -200,7 +247,7 @@ def refine_sweep_reference(
     if not adopt:
         return eff
     big = torch.iinfo(torch.int32).max
-    ppx, ppy, ppz = (_pad(a, w, _POS_FILL) for a in pos)
+    ppx, ppy, ppz = (_pad(a, w, POS_FILL) for a in pos)
     pmnx, pmny, pmnz, pmb = (_pad(a, w, 0.0) for a in (mnx, mny, mnz, mb))
     peff = _pad(eff, w, 0)
     best = torch.full_like(pid, big)
@@ -223,7 +270,7 @@ def refine_sweep_reference(
 
 def refine_sweep(pos, nrm, mask, pid, table, n_live, *, w, th_thickness,
                  th_normal_cos, edge_gate2, signed=False, clean=False,
-                 adopt=True) -> torch.Tensor:
+                 adopt=True, group=None) -> torch.Tensor:
     """One refinement sweep against the [P] plane table → int32[n] plane
     ids (0 = none).
 
@@ -235,12 +282,16 @@ def refine_sweep(pos, nrm, mask, pid, table, n_live, *, w, th_thickness,
     (|p·n − b| ≤ th and |n_i·n| ≥ cos); otherwise (with ``adopt``) it
     takes the smallest kept id of a valid window candidate within the
     edge gate whose plane accepts it.  ``clean`` applies to candidates
-    too.  CUDA tensors launch the CUDA kernel, CPU tensors run
-    :func:`refine_sweep_reference`.
+    too.  With ``group`` every column holds w halo rows a side (fills:
+    position −3e7, normal 0, mask False, pid 0; the table is the same on
+    every rank) and the S middle rows come back.  CUDA tensors launch
+    the CUDA kernel, CPU tensors run :func:`refine_sweep_reference`.
     """
     args = (pos, nrm, mask, pid, table, n_live)
     kw = dict(w=w, th_thickness=th_thickness, th_normal_cos=th_normal_cos,
               edge_gate2=edge_gate2, signed=signed, clean=clean, adopt=adopt)
     if mask.is_cuda:
-        return kernels.refine_sweep_cuda(*args, **kw)
-    return refine_sweep_reference(*args, **kw)
+        out = kernels.refine_sweep_cuda(*args, **kw)
+    else:
+        out = refine_sweep_reference(*args, **kw)
+    return _middle(group, w, mask, out)

@@ -30,6 +30,14 @@ are almost always samples of one plane, so:
 The [P, P] work runs on the first ``n_live`` table rows only: every
 plane id is at most ``n_live``, so the other rows are empty and take no
 part in a pair, a merge or a root.
+
+Sharded (``shard_group``, the JAX package's ``axis_name``): each rank
+coarsens and refines its own rows (S must divide by ``group **
+levels``, so a group of rows never straddles two ranks), the seed and refine
+sweeps read ring halos, the coarse solve is the sharded
+:func:`segment_planes`, and the finalize's sums — the payload moments
+and the adoption sums — continue from rank to rank (``group.fold``), so
+the [P, P] work runs on the same table on every rank.
 """
 
 from __future__ import annotations
@@ -48,9 +56,13 @@ from buildingsegment_tpu_torch.ops.segsum import (
     row_order_sums,
     table_lookup,
 )
-from buildingsegment_tpu_torch.ops.window_sweep import refine_sweep
+from buildingsegment_tpu_torch.ops.window_sweep import (
+    halo_columns,
+    refine_sweep,
+)
 from buildingsegment_tpu_torch.seg.region_grow import (
     SegmentationResult,
+    _shard_kw,
     segment_planes,
     window_seeds,
 )
@@ -123,6 +135,7 @@ def segment_planes_multigrid(
     seed_mode: Optional[str] = None,
     spacing_hint_mm: Optional[float] = None,
     heal=True,
+    shard_group=None,
 ) -> SegmentationResult:
     """Multigrid windowized plane segmentation (Morton-sorted input).
 
@@ -140,9 +153,17 @@ def segment_planes_multigrid(
     ``plane_sums``).  The inner levels always heal fully, as in the JAX
     package (an inner adoption feeds the next level's refinement); the
     switch is a perf-attribution knob, and True is what production runs.
+
+    ``shard_group`` (a ``dist.ShardGroup``; the keyword the other
+    solvers call ``group``, which here is the coarsening factor, as in
+    the JAX package): the inputs are this rank's rows of the sorted
+    cloud (module docstring); ``heal=False`` has no sharded form.
     """
     if heal not in HEAL_MODES:
         raise ValueError(f"heal={heal!r}, expected one of {HEAL_MODES}")
+    if shard_group is not None and heal is False:
+        raise ValueError("sharded multigrid: heal=False has no sharded "
+                         "finalize")
     t_start = time.perf_counter()
     dev = positions.device
     n = positions.shape[0]
@@ -212,7 +233,7 @@ def segment_planes_multigrid(
         fine_seed = window_seeds(
             pos, nrm, mask, dk, window=window, th_thickness=th_thickness,
             th_normal_cos=th_normal_cos, signed_normals=signed_normals,
-            seed_mode=seed_mode,
+            seed_mode=seed_mode, group=shard_group,
         )
     if fine_seed is not None:
         if curvature is not None and th_seed_curvature is not None:
@@ -238,10 +259,11 @@ def segment_planes_multigrid(
         coarse = segment_planes_multigrid(
             gpos_i, gnrm, gmask, window=window, group=group,
             refine_sweeps=refine_sweeps, levels=levels - 1,
-            spacing_hint_mm=child_hint, **common,
+            spacing_hint_mm=child_hint, shard_group=shard_group, **common,
         )
     else:
-        coarse = segment_planes(gpos_i, gnrm, None, gmask, **common)
+        coarse = segment_planes(gpos_i, gnrm, None, gmask, group=shard_group,
+                                **common)
     for key, val in coarse.timings.items():
         timings[key] = timings.get(key, 0.0) + val
     t = time.perf_counter()
@@ -254,12 +276,21 @@ def segment_planes_multigrid(
     table = torch.stack([pn[:, 0], pn[:, 1], pn[:, 2], _dot3(pn, pc)], 1)
     pos3 = tuple(pos[:, d].contiguous() for d in range(3))
     nrm3 = tuple(nrm[:, d].contiguous() for d in range(3))
+    sw_pos, sw_nrm, sw_mask = pos3, nrm3, mask
+    if shard_group is not None:
+        # the fixed columns take their halos once a level, the ids each
+        # sweep
+        sw_pos, sw_nrm, sw_mask = halo_columns(shard_group, window, pos3,
+                                               nrm3, mask)
     for s in range(max(1, refine_sweeps)):
+        sw_pid = pid if shard_group is None else shard_group.halo_pad(
+            pid, window, fill=0)
         pid = refine_sweep(
-            pos3, nrm3, mask, pid, table, n_live, w=window,
+            sw_pos, sw_nrm, sw_mask, sw_pid, table, n_live, w=window,
             th_thickness=float(th_thickness),
             th_normal_cos=float(th_normal_cos), edge_gate2=edge_mm ** 2,
             signed=signed_normals, clean=(s == 0), adopt=refine_sweeps > 0,
+            **_shard_kw(shard_group),
         )
     t = _add_timing(timings, "mg_refine", t, dev)
 
@@ -275,9 +306,9 @@ def segment_planes_multigrid(
     L = max(min(n_live, max_planes), 1)
     rows_p = torch.arange(L, dtype=torch.int64, device=dev)
     if heal:
-        acc_a, acc_mq = plane_payload_moment_sums(
-            old_row, payload, pc, n_live, table_cap=max_planes,
-        )
+        acc_a, acc_mq = _fold(shard_group, lambda init: plane_payload_moment_sums(
+            old_row, payload, pc, n_live, table_cap=max_planes, init=init,
+        ), [(cap128, 8), (cap128, 6)])
         acc = acc_a[:L]
         acc_mq = acc_mq[:L]
     else:
@@ -296,7 +327,8 @@ def segment_planes_multigrid(
         adopted, adopt_row, acc = _adopt_holes(
             acc, acc_o, acc_m, c_t, parent, payload, mask & (pid == 0),
             edge_mm=edge_mm, th_thickness=th_thickness,
-            th_normal_cos=th_normal_cos, signed_normals=signed_normals)
+            th_normal_cos=th_normal_cos, signed_normals=signed_normals,
+            group=shard_group)
 
     # cull (> th_point_count) and renumber by rank of the merged root
     keep = acc[:, 0].to(torch.int32) > th_point_count
@@ -340,6 +372,13 @@ def segment_planes_multigrid(
         host_syncs=coarse.host_syncs + 1,
         timings=timings,
     )
+
+
+def _fold(group, compute, shapes):
+    """``compute(None)``, or its sums continued from rank to rank."""
+    if group is None:
+        return compute(None)
+    return group.fold(compute, shapes)
 
 
 def _merge_coplanar(acc, acc_mq, pc, rows_p, cmag, *, edge_mm, th_thickness,
@@ -411,7 +450,7 @@ def _merge_coplanar(acc, acc_mq, pc, rows_p, cmag, *, edge_mm, th_thickness,
 
 
 def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
-                 th_thickness, th_normal_cos, signed_normals):
+                 th_thickness, th_normal_cos, signed_normals, group=None):
     """The finalize's hole adoption: flatness per merged root, then each
     hole row tested against the 128 largest flat roots (the adoption
     kernel).  ``acc`` holds the root sums, ``acc_o``, ``acc_m`` and
@@ -458,11 +497,17 @@ def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
     lane_ok = (top_cnt > 0) & flat_ok[top_row]
     lane_rows = torch.zeros(ADOPT_K, dtype=torch.int32, device=dev)
     lane_rows[:k] = top_row.to(torch.int32)
-    adopted, adopt_row, acc128 = plane_adopt(
-        payload, holes, adopt_table(nk, ck, bk, ccdk, reachk * reachk,
-                                    lane_ok),
-        lane_rows, th_thickness=float(th_thickness),
-        th_cos=float(th_normal_cos), signed=signed_normals,
-    )
+    table = adopt_table(nk, ck, bk, ccdk, reachk * reachk, lane_ok)
+    hold = {}
+
+    def adopt(init):
+        hold["out"] = plane_adopt(
+            payload, holes, table, lane_rows,
+            th_thickness=float(th_thickness), th_cos=float(th_normal_cos),
+            signed=signed_normals, init=init)
+        return hold["out"][2]
+
+    acc128 = _fold(group, adopt, (ADOPT_K, 8))
+    adopted, adopt_row, _ = hold["out"]
     # fold the lane sums onto their root rows (top_row is a permutation)
     return adopted, adopt_row, acc.index_add(0, top_row, acc128[:k])

@@ -34,7 +34,15 @@ The multigrid solver (``seg/coarse.py``) derives its seeds with
 :func:`window_seeds` (the same rule over ±window rows, on the seed-sweep
 kernel) and hands each level its seeds through ``seed_override``.
 
-Not ported yet (ROADMAP.md, a later slice): ``axis_name`` sharding.
+Sharded (``group``, a ``dist.ShardGroup``; the JAX package's
+``axis_name``): each rank holds a contiguous range of the sorted rows,
+labels are global row ids (``ng = n · world``, rank r's rows from
+``r · n``), the window sweeps read ring halos, the f32 label tables are
+summed over the ranks in rank order (``group.fold``: the one-device
+sums), the merge parents are min-reduced, the change count summed.
+Every value a loop test reads on the host has been reduced first, so
+all ranks take the same path.  The compact loop has no sharded form
+and runs at world 1 only.
 """
 
 from __future__ import annotations
@@ -50,8 +58,12 @@ from buildingsegment_tpu_torch.ops.compact_sweep import COMPACT_L, compact_sweep
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
 from buildingsegment_tpu_torch.ops.segsum import row_order_sums
-from buildingsegment_tpu_torch.ops.stats_mxu import seed_sweep_mxu
-from buildingsegment_tpu_torch.ops.window_sweep import label_sweep, seed_sweep
+from buildingsegment_tpu_torch.ops.stats_mxu import mxu_halo, seed_sweep_mxu
+from buildingsegment_tpu_torch.ops.window_sweep import (
+    halo_columns,
+    label_sweep,
+    seed_sweep,
+)
 from buildingsegment_tpu_torch.utils.device import synchronize
 
 __all__ = ["segment_planes", "SegmentationResult", "window_seeds",
@@ -142,6 +154,12 @@ def _acc_models(rows: torch.Tensor):
     return sn / ln, c, r, cnt_a
 
 
+def _shard_kw(group) -> dict:
+    """The ``group`` keyword of a sharded sweep call; one-device calls
+    pass none (they keep the wrappers' one-device signature)."""
+    return {} if group is None else {"group": group}
+
+
 def _f32sq(x: float) -> float:
     """float32(x)², rounded in float32."""
     return float(np.float32(x) * np.float32(x))
@@ -158,6 +176,7 @@ def window_seeds(
     th_normal_cos: float = 0.88,
     signed_normals: bool = False,
     seed_mode=None,
+    group=None,
 ) -> torch.Tensor:
     """Strict depth-0 seed rule over ±window sorted rows → bool[N].
 
@@ -166,7 +185,8 @@ def window_seeds(
     cloud: row i is a seed iff no window candidate within its k-th-NN
     radius (``kth_sq_dist``, squared) fails the test.  ``seed_mode`` is
     one of :data:`SEED_MODES`; "mxu" runs the block-form variant (the
-    config's ``seg_seed_mode``).
+    config's ``seg_seed_mode``).  With ``group`` the inputs are this
+    rank's rows and the window reads the neighbours' rows (a ring halo).
     """
     if seed_mode not in SEED_MODES:
         raise ValueError(f"seed_mode={seed_mode!r}, expected one of "
@@ -174,10 +194,17 @@ def window_seeds(
     sweep = seed_sweep_mxu if seed_mode == "mxu" else seed_sweep
     pos = tuple(positions[:, d].float().contiguous() for d in range(3))
     nrm = tuple(normals[:, d].float().contiguous() for d in range(3))
+    dk = kth_sq_dist.float().contiguous()
+    if group is not None:
+        h = mxu_halo(window) if seed_mode == "mxu" else window
+        pos, nrm, mask = halo_columns(group, h, pos, nrm, mask)
+        # a candidate's ball is never read: the halo rows keep zeros
+        zeros = dk.new_zeros(h)
+        dk = torch.cat([zeros, dk, zeros])
     return sweep(
-        pos, nrm, mask, kth_sq_dist.float().contiguous(), w=window,
+        pos, nrm, mask, dk, w=window,
         th_thickness=float(th_thickness), th_normal_cos=float(th_normal_cos),
-        signed=signed_normals,
+        signed=signed_normals, **_shard_kw(group),
     )
 
 
@@ -202,6 +229,7 @@ def segment_planes(
     propagation: str = "window",
     th_anchor_cos: float = 0.95,
     compact: Optional[bool] = None,
+    group=None,
 ) -> SegmentationResult:
     """Segment a point cloud into planar regions.
 
@@ -229,22 +257,40 @@ def segment_planes(
             takes it on the card when 2048 < N ≤ 262,144 — where the JAX
             package takes it on the TPU — and never on the CPU, where
             the JAX package keeps its XLA loop.  The graph propagation
-            never takes it.
+            never takes it, nor a sharded solve above world 1.
+        group: a ``dist.ShardGroup`` (module docstring): the inputs are
+            this rank's rows of the sorted cloud; needs
+            ``propagation="window"`` and ``seed_override``.  ``plane_idx``
+            holds this rank's rows, the tables are the same on every rank.
     """
     if propagation not in ("window", "graph"):
         raise ValueError(f"propagation={propagation!r}")
+    if group is not None and (propagation != "window"
+                              or seed_override is None):
+        raise ValueError("sharded segment_planes needs propagation='window' "
+                         "and seed_override (see window_seeds)")
     t_start = time.perf_counter()
     dev = positions.device
     n = positions.shape[0]
     pos = positions.float()
     nrm = normals.float()
-    ng = n
+    world = 1 if group is None else group.world
+    ng = n * world  # the global label space
+    base = 0 if group is None else group.rank * n
     inf = ng
     syncs = 0
     timings = {}
     cmag = (lambda x: x) if signed_normals else torch.abs
     sns = nrm if signed_normals else canonicalize_normals(nrm)
     rows_ng = torch.arange(ng, dtype=torch.int32, device=dev)
+    gid = rows_ng[base:base + n]  # this rank's rows' global ids
+
+    def fold_sums(idx, rows, size):
+        """row_order_sums over every rank's rows, in global row order."""
+        if group is None:
+            return row_order_sums(idx, rows, size)
+        return group.fold(lambda init: row_order_sums(idx, rows, size, init),
+                          (size, rows.shape[1]))
 
     # the kNN-graph edges i → neigh[i, 1:], gated by validity and (with
     # distances and a gate) by length
@@ -273,6 +319,8 @@ def segment_planes(
     # solve (purity gate of the model sums)
     anchor_gate = th_anchor_cos > th_normal_cos
     anchor_tab = torch.where(seed[:, None], sns, 0.0) if anchor_gate else None
+    if anchor_gate and group is not None:
+        anchor_tab = group.all_gather(anchor_tab)  # [ng, 3]
 
     def purity(label):
         if not anchor_gate:
@@ -296,11 +344,15 @@ def segment_planes(
             payload = base
         return torch.where(valid[:, None], payload, 0.0)
 
-    label0 = torch.where(seed, rows_ng, inf)
+    label0 = torch.where(seed, gid, inf)
     ws = WINDOW
     # contiguous component columns, made once: the kernels take [n] rows
     px, py, pz = (pos[:, d].contiguous() for d in range(3))
     nx_, ny_, nz_ = (nrm[:, d].contiguous() for d in range(3))
+    if group is not None:
+        # the sweep's fixed columns with their ring halos, once a solve
+        halo_pos, halo_nrm, halo_mask = halo_columns(
+            group, ws, (px, py, pz), (nx_, ny_, nz_), mask)
     edge_gate_val = (
         max_edge_dist if max_edge_dist is not None else 2 * th_thickness
     )
@@ -351,11 +403,14 @@ def segment_planes(
 
     def collapse(idx, val, rounds):
         """Parent table: each label hooked to the min of the ``val`` aimed
-        at it (index ``ng`` = no hook), then ``rounds`` jump rounds."""
+        at it (index ``ng`` = no hook; the min over the ranks when
+        sharded), then ``rounds`` jump rounds."""
         parent = torch.cat([rows_ng, rows_ng.new_full((1,), inf)])
         parent.scatter_reduce_(0, idx.reshape(-1).long(), val.reshape(-1),
                                "amin")
         parent = parent[:ng]
+        if group is not None:
+            parent = group.pmin(parent)
         for _ in range(rounds):
             parent = torch.minimum(parent, parent[parent.clamp(0, ng - 1).long()])
         return parent
@@ -390,7 +445,7 @@ def segment_planes(
         else:
             tgt = torch.where(valid, label, ng).long()
             payload = stats_payload(label, valid, with_sq=True)
-            acc = row_order_sums(tgt, payload, ng + 1)[:ng]
+            acc = fold_sums(tgt, payload, ng + 1)[:ng]
             model_n, model_c, _r, cnt = _acc_models(acc)
             flag = cnt > 0
 
@@ -398,13 +453,24 @@ def segment_planes(
         rank, top_lab, live = compact_slots(flag, L)
 
         # window sweep: hop-min + merge-hook candidates
+        sw_pos, sw_nrm, sw_mask, sw_label = ((px, py, pz), (nx_, ny_, nz_),
+                                             mask, label)
+        if group is not None:
+            # only the labels take new halos: the halo rows' models come
+            # from the same (replicated) table
+            sw_pos, sw_nrm, sw_mask = halo_pos, halo_nrm, halo_mask
+            sw_label = group.halo_pad(label, ws, fill=inf)
+            if singleton:
+                mp = group.halo_pad(mp, ws, fill=0.0)
         if not singleton:
             model_nc = torch.cat([model_n, model_c], 1)
-            mp = torch.where(valid[:, None], model_nc[label.clamp(0, ng - 1)], 0.0)
+            mp = torch.where((sw_label < inf)[:, None],
+                             model_nc[sw_label.clamp(0, ng - 1)], 0.0)
         new, best = label_sweep(
-            (px, py, pz), (nx_, ny_, nz_),
+            sw_pos, sw_nrm,
             (mp[:, 0], mp[:, 1], mp[:, 2]), (mp[:, 3], mp[:, 4], mp[:, 5]),
-            label, mask, inf_label=inf, **sweep_kw,
+            sw_label, sw_mask, inf_label=inf, **_shard_kw(group),
+            **sweep_kw,
         )
 
         # global coplanar-overlap pairs on the compact [L] table
@@ -419,6 +485,11 @@ def segment_planes(
         parent = collapse(idx_cat, torch.cat([best, row_min]), JUMP_ROUNDS)
         live_cnt = rank[ng - 1]
         return relabel(parent, new), live_cnt, torch.clamp_min(live_cnt - L, 0)
+
+    def changes(new, label):
+        """Rows whose label changed, over every rank."""
+        nch = (new != label).sum()
+        return nch if group is None else group.psum(nch)
 
     # graph propagation (the JAX package's graph branch of ``body``)
     def label_models(label):
@@ -504,7 +575,7 @@ def segment_planes(
         return flags[:ng]
 
     tol_count = max(1, int(convergence_tol * ng))
-    if graph:
+    if graph or world > 1:
         use_compact = False
     elif compact is None:
         use_compact = positions.is_cuda and COMPACT_L < ng <= COMPACT_MAX_ROWS
@@ -530,7 +601,7 @@ def segment_planes(
                 new, live, over = graph_body(label, live_bound)
             else:
                 new, live, over = window_body(label)
-            nch = (new != label).sum()
+            nch = changes(new, label)
             nch, live, over = torch.stack([nch, live, over]).tolist()
             syncs += 1
             if graph:
@@ -611,6 +682,8 @@ def segment_planes(
 
     # 5. cull small planes (strict >)
     counts = torch.bincount(label.clamp(max=ng).long(), minlength=ng + 1)
+    if group is not None:
+        counts = group.psum(counts)
     surviving = counts[:ng] > th_point_count
     keep = (label < inf) & surviving[label.clamp(0, ng - 1).long()]
     label = torch.where(keep, label, inf)
@@ -629,7 +702,7 @@ def segment_planes(
     in_table = (plane_id > 0) & (plane_id <= max_planes)
     seg = torch.where(in_table, plane_id - 1, max_planes).long()
     fin_payload = stats_payload(label, plane_id > 0, with_sq=False)
-    acc_fin = row_order_sums(seg, fin_payload, max_planes + 1)
+    acc_fin = fold_sums(seg, fin_payload, max_planes + 1)
     plane_normal, plane_center, _r_fin, cnt_f = _acc_models(acc_fin[:max_planes])
     cnt = cnt_f.to(torch.int32)
     plane_normal = torch.where((cnt > 0)[:, None], plane_normal, 0.0)

@@ -132,6 +132,24 @@ Phases, in order; the first failure exits non-zero:
    ``read_ply`` / ``write_ply`` / ``host_to_device`` printed beside the
    numpy codec's figures of the previous commit (``NUMPY_CODEC_MS``).
 
+17. the sharded pipeline (``dist.sharded_pipeline``) on bench.py's
+   scene (config 5's scan 0: 1,082,304 points, capacity 1,179,648),
+   spawned at world 1 (NCCL, cuda:0) and world 2 (gloo, both ranks on
+   the one card): world 1 equals the default one-device run
+   (``run_device_pipeline``), world 2 the one-device run with
+   ``seg_compact=False`` (the compact loop has no sharded form) and,
+   under the ``mxu`` fields, the one-device ``mxu`` run with
+   ``seg_compact=False``, bit for bit in labels, plane count and plane
+   sizes; world 2 against the default run: the same plane count, cross
+   agreement ≥ 0.99, truth agreement within 0.01.  Each rank records
+   every kernel call of a warm-up run and holds it against its plain
+   version on its own halo-padded inputs; in the measured run (counts set
+   to 0 just before, read just after) every kernel of the path must
+   launch on every rank.  Printed per rank: wall time and CUDA-event ms,
+   sweeps, host syncs, reductions, gathers, halo bytes and messages (a
+   sweep), host stagings, launch counts.  Step 4 also gives #9's card ms
+   beside an empty kernel's (the launch floor).
+
 The last three lines of stdout are the card line, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.
 """
@@ -547,13 +565,15 @@ def clone(torch, x):
 @contextlib.contextmanager
 def spying(torch, hooks, seen):
     """Within the block, every call of a hooked wrapper appends (rows, a
-    copy of its arguments, its keywords) to ``seen[name]`` (list appends
-    are atomic, so the multi-scan writer thread may call too)."""
+    copy of its arguments, its keywords but the shard ``group``, which
+    only the wrapper reads) to ``seen[name]`` (list appends are atomic,
+    so the multi-scan writer thread may call too)."""
     def spy(name, fn):
         def call(*args, **kw):
             n = args[ROWS_ARG[name]].shape[0]
             seen.setdefault(name, []).append(
-                (n, clone(torch, args), dict(kw)))
+                (n, clone(torch, args),
+                 {k: v for k, v in kw.items() if k != "group"}))
             return fn(*args, **kw)
         return call
 
@@ -1316,37 +1336,224 @@ def native_phase(np, card, src, spread_native):
     return rec
 
 
-def main():
+# the sharded phase: bench.py's scene (config 5's scan 0) through
+# dist.sharded_pipeline at world 1 (NCCL) and world 2 (gloo, both ranks
+# on the one card)
+SHARDED_BACKENDS = {1: "nccl", 2: "gloo"}
+SHARDED_NAMES = {1: ("default",), 2: ("default", "mxu")}
+# the kernels each sharded run must launch on every rank
+SHARDED_KERNELS = {
+    "default": ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
+                "payload_moment_sums", "table_lookup", "plane_adopt"),
+}
+SHARDED_KERNELS["mxu"] = ("stats_mxu", "seed_mxu") + SHARDED_KERNELS[
+    "default"][2:]
+SHARDED_TIMEOUT_S = 300
+SHARDED_POINTS = 1082304
+
+
+def sharded_configs():
+    """The sharded phase's configurations by name."""
+    from buildingsegment_tpu_torch.pipeline import DEFAULT_CONFIG
+
+    return {"default": DEFAULT_CONFIG, "mxu": mxu_config()}
+
+
+def device_run(torch, pos, mask, cfg):
+    """The one-device ``run_device_pipeline`` of ``cfg`` on the card (the
+    window path, no host hints: what ``sharded_pipeline`` computes) →
+    host arrays."""
+    from buildingsegment_tpu_torch.dist.check import one_device_run
+
+    seg, _ms = one_device_run(pos, mask, cfg, "cuda", cfg.seg_compact)
+    return {"plane_idx": seg.plane_idx.cpu().numpy(),
+            "num_planes": seg.num_planes,
+            "plane_count": seg.plane_count.cpu().numpy()}
+
+
+def sharded_rank(group, pos_np, mask_np, names, card):
+    """One rank of the sharded phase (run by ``dist.spawn``): per
+    configuration a warm-up run of ``sharded_pipeline`` recording every
+    kernel wrapper call, then the measured run with the launch counts set
+    to 0 just before and read just after; then, rank after rank, every
+    recorded call held against its plain version on this rank's
+    halo-padded inputs (``hold_kernel``).  Returns (per configuration
+    the run's record, per (configuration, kernel) the held row)."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False")
-    card = card_line()
-    print(card)
-    kind = torch.cuda.get_device_name(0)
-
-    import numpy as np
-
     from buildingsegment_tpu_torch import kernels
-    from buildingsegment_tpu_torch.core.morton import morton_argsort
-    from buildingsegment_tpu_torch.core.pointset import PointBatch
-    from buildingsegment_tpu_torch.core.quantize import shift_to_origin
-    from buildingsegment_tpu_torch.ops import (
-        adopt, compact_sweep, pallas_knn, segsum, stats_mxu, stats_sweep,
-        window_sweep,
-    )
-    from buildingsegment_tpu_torch.pipeline import (
-        DEFAULT_CONFIG, HostPointCloud, PipelineConfig, read_ply,
-        resolve_knn_method, segment_cloud, segment_file, write_ply,
-    )
-    from buildingsegment_tpu_torch.raster import ortho
-    from buildingsegment_tpu_torch.seg import coarse, region_grow
+    from buildingsegment_tpu_torch.dist import sharded_pipeline
+
+    hooks, cuda_fns = kernel_hooks()
+    kernels.build()
+    pos = torch.from_numpy(pos_np).to(group.device)
+    mask = torch.from_numpy(mask_np).to(group.device)
+    configs = sharded_configs()
+    out, captured = {}, {}
+    for name in names:
+        fn = sharded_pipeline(group, configs[name])
+        seen = {}
+        with spying(torch, hooks, seen):
+            fn(pos, mask)
+        torch.cuda.synchronize()
+        captured[name] = seen
+        group.barrier()
+        group.stats.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        start.record()
+        _s, _lo, seg = fn(pos, mask)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        rec = {"num_planes": seg.num_planes,
+               "plane_count": seg.plane_count.cpu().numpy(),
+               "num_sweeps": seg.num_sweeps, "host_syncs": seg.host_syncs,
+               "diagnostics": seg.diagnostics.tolist(),
+               "launches": launches, "collectives": dict(vars(group.stats)),
+               "event_ms": start.elapsed_time(end), "wall_s": wall}
+        if group.rank == 0:
+            rec["plane_idx"] = seg.plane_idx.cpu().numpy()
+        out[name] = rec
+        group.barrier()
+    rows = {}
+    for r in range(group.world):  # one rank at a time on the card
+        if r == group.rank:
+            for name, seen in captured.items():
+                for kname, calls in seen.items():
+                    rows[(name, kname)] = hold_kernel(
+                        torch, kname,
+                        f"sharded {name}, world {group.world} rank {r}",
+                        calls, cuda_fns[kname], hooks[kname][2], card)
+        group.barrier()
+    return out, rows
+
+
+def sharded_phase(torch, np, card):
+    """``dist.sharded_pipeline`` at world 1 and 2 on bench.py's scene; see
+    the module docstring, step 17.  Returns the phase's record."""
+    from buildingsegment_tpu_torch.dist import spawn
     from buildingsegment_tpu_torch.utils import (
         bij_agreement, make_building_cloud,
     )
 
-    # the module attribute each solver calls, and each kernel's plain
-    # version
+    pts, truth = make_building_cloud(**MULTISCAN_SCENE)
+    n = len(pts)
+    if n != SHARDED_POINTS:
+        fail(f"sharded phase: scene has {n} points, expected "
+             f"{SHARDED_POINTS}")
+    pos = np.full((MULTISCAN_CAPACITY, 3), 1 << 24, np.int32)
+    pos[:n] = pts
+    mask = np.zeros(MULTISCAN_CAPACITY, bool)
+    mask[:n] = True
+    configs = sharded_configs()
+    refs = {
+        "default": device_run(torch, pos, mask, configs["default"]),
+        "no_compact": device_run(torch, pos, mask, dataclasses.replace(
+            configs["default"], seg_compact=False)),
+        "mxu_no_compact": device_run(torch, pos, mask, dataclasses.replace(
+            configs["mxu"], seg_compact=False)),
+    }
+    torch.cuda.empty_cache()
+    runs, rec = {}, {"points": n, "capacity": MULTISCAN_CAPACITY,
+                     "card": card}
+    for world in (1, 2):
+        try:
+            runs[world] = spawn(
+                sharded_rank, world, backend=SHARDED_BACKENDS[world],
+                device=None, timeout_s=SHARDED_TIMEOUT_S,
+                args=(pos, mask, SHARDED_NAMES[world], card))
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"sharded phase, world {world}: {exc}")
+
+    def same(got, want, what):
+        if not (np.array_equal(got["plane_idx"], want["plane_idx"])
+                and got["num_planes"] == want["num_planes"]
+                and np.array_equal(got["plane_count"], want["plane_count"])):
+            fail(f"sharded phase: {what} differs (planes "
+                 f"{got['num_planes']} vs {want['num_planes']}, labels "
+                 f"equal on {float((got['plane_idx'] == want['plane_idx']).mean())})")
+
+    w1 = runs[1][0][0]["default"]
+    same(w1, refs["default"], "world 1 vs the default one-device run")
+    w2 = runs[2][0][0]["default"]
+    same(w2, refs["no_compact"], "world 2 vs the seg_compact=False run")
+    same(runs[2][0][0]["mxu"], refs["mxu_no_compact"],
+         "world 2 mxu vs the one-device mxu run with seg_compact=False")
+    cross = bij_agreement(refs["default"]["plane_idx"][:n],
+                          w2["plane_idx"][:n])
+    ag_d = bij_agreement(truth, refs["default"]["plane_idx"][:n])
+    ag_2 = bij_agreement(truth, w2["plane_idx"][:n])
+    if (w2["num_planes"] != refs["default"]["num_planes"] or cross < 0.99
+            or abs(ag_d - ag_2) >= 0.01):
+        fail(f"sharded phase: world 2 vs the default run: planes "
+             f"{w2['num_planes']} vs {refs['default']['num_planes']}, cross "
+             f"{cross}, truth {ag_2} vs {ag_d}")
+    for world, ranks in runs.items():
+        for r, (out, rows) in enumerate(ranks):
+            for name, got in out.items():
+                need = SHARDED_KERNELS[name] + (
+                    ("compact_sweep",) if world == 1 else ())
+                missing = [k for k in need if got["launches"][k] == 0]
+                if missing:
+                    fail(f"sharded {name}, world {world} rank {r} never "
+                         f"launched {missing}")
+                if name == "mxu" and (got["launches"]["stats_sweep"]
+                                      or got["launches"]["seed_sweep"]):
+                    fail("sharded mxu run launched #3 or #4")
+                col = got["collectives"]
+                sweeps = max(got["num_sweeps"], 1)
+                rec[f"world{world}_rank{r}_{name}"] = {
+                    "planes": got["num_planes"],
+                    "num_sweeps": got["num_sweeps"],
+                    "host_syncs": got["host_syncs"],
+                    "diagnostics": got["diagnostics"],
+                    "event_ms": got["event_ms"], "wall_s": got["wall_s"],
+                    "launches": {k: v for k, v in got["launches"].items()
+                                 if v},
+                    "collectives": col,
+                    "halo_bytes_per_sweep": col["halo_bytes"] / sweeps,
+                    "halo_messages_per_sweep": col["halo_messages"] / sweeps,
+                    "kernels": {k: {f: row[f] for f in (
+                        "rows", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                        for (nm, k), row in rows.items() if nm == name},
+                }
+                print(f"sharded {name}, world {world} rank {r}: "
+                      f"{got['num_planes']} planes, {got['num_sweeps']} "
+                      f"sweeps, {got['wall_s']:.4f} s wall, "
+                      f"{got['event_ms']:.3f} ms between CUDA events, "
+                      f"{got['host_syncs']} host syncs, "
+                      f"{col['reductions']} reductions, {col['gathers']} "
+                      f"gathers, halo {col['halo_bytes']} B in "
+                      f"{col['halo_messages']} messages "
+                      f"({col['halo_bytes'] / sweeps:.1f} B, "
+                      f"{col['halo_messages'] / sweeps:.2f} messages a "
+                      f"sweep), {col['host_stagings']} host stagings; "
+                      f"launches {rec[f'world{world}_rank{r}_{name}']['launches']} "
+                      f"({card})")
+    rec["cross_bij_default"] = cross
+    rec["truth_bij"] = {"default": ag_d, "world2": ag_2}
+    print(f"sharded phase: world 1 == default one-device run, world 2 == "
+          f"seg_compact=False run and mxu == its one-device run bit for "
+          f"bit; world 2 vs default: {w2['num_planes']} planes, cross "
+          f"{cross:.6f}, truth {ag_2:.6f} vs {ag_d:.6f} ({card})")
+    return rec
+
+
+def kernel_hooks():
+    """(the module attribute each solver calls for each kernel wrapper and
+    the kernel's plain version, each kernel's CUDA wrapper)."""
+    from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.ops import (
+        adopt, compact_sweep, pallas_knn, segsum, stats_mxu, stats_sweep,
+        window_sweep,
+    )
+    from buildingsegment_tpu_torch.raster import ortho
+    from buildingsegment_tpu_torch.seg import coarse, region_grow
+
     hooks = {
         "stats_sweep": (stats_sweep, "stats_sweep",
                         stats_sweep.stats_sweep_reference),
@@ -1386,6 +1593,34 @@ def main():
         "seed_mxu": kernels.seed_mxu_cuda,
         "table_lookup_cols": kernels.table_lookup_cols_cuda,
     }
+    return hooks, cuda_fns
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    card = card_line()
+    print(card)
+    kind = torch.cuda.get_device_name(0)
+
+    import numpy as np
+
+    from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.core.morton import morton_argsort
+    from buildingsegment_tpu_torch.core.pointset import PointBatch
+    from buildingsegment_tpu_torch.core.quantize import shift_to_origin
+    from buildingsegment_tpu_torch.ops import pallas_knn, segsum
+    from buildingsegment_tpu_torch.pipeline import (
+        DEFAULT_CONFIG, HostPointCloud, PipelineConfig, read_ply,
+        resolve_knn_method, segment_cloud, segment_file, write_ply,
+    )
+    from buildingsegment_tpu_torch.utils import (
+        bij_agreement, make_building_cloud,
+    )
+
+    hooks, cuda_fns = kernel_hooks()
 
     # 2. build, the kernels and the native host codec
     t_build = kernels.build()
@@ -1448,6 +1683,16 @@ def main():
         mxu_pairs = {name: block_vs_exact(torch, name, captured["mxu"][name],
                                           cuda_fns, card, "mxu path")
                      for name in MXU_REPLACES}
+        # #9 beside the launch floor: its card ms at the default path's
+        # largest call and an empty kernel's (a one-element add_), both
+        # from the profiler in this call
+        timed_row(torch, "table_lookup", results[("default", "table_lookup")],
+                  captured["default"]["table_lookup"],
+                  cuda_fns["table_lookup"], "default path", card)
+        one = torch.zeros(1, device="cuda")
+        floor_ms = card_ms(torch, lambda: one.add_(1.0))
+        print(f"launch floor: an empty kernel (one-element add_) card ms "
+              f"{floor_ms} a call (profiler) ({card})")
         del captured
 
         # 5. small input: card (kernels) vs CPU (plain versions)
@@ -1650,6 +1895,9 @@ def main():
     normals_window, normals_row = normals_window_phase(torch, np, hooks,
                                                        card)
 
+    # 17. the sharded pipeline at world 1 (NCCL) and world 2 (gloo)
+    sharded = sharded_phase(torch, np, card)
+
     # the redesigned kernels (stage-then-fold sums, #3's selection, the
     # tiled window gates of #4 and #6, #1's lanes a row) at both sizes,
     # #1 also on the single-level path, and #14 on the pallas path and at
@@ -1682,7 +1930,8 @@ def main():
                       "plane_sums_heal_false": heal_row,
                       "normals_window": normals_window,
                       "stats_sweep_normals_window": normals_row,
-                      "native_codec": native}))
+                      "native_codec": native, "sharded": sharded,
+                      "launch_floor_card_ms": floor_ms}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
         path = MAIN_PATH[name]

@@ -712,6 +712,62 @@ def test_payload_moment_sums_kernel_matches_plain(scene):
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("kernel", ["payload_moment_sums", "plane_adopt"])
+def test_block_sums_continue_from_init(scene, kernel):
+    """#11 and #13 with ``init`` (a shard continuing the shards before
+    it): the rows cut at a block boundary, the second part started from
+    the first part's tables, equal the whole rows' sums bit for bit, on
+    the card and in the plain version."""
+    pos, nrm, mask = scene
+    n = mask.shape[0]
+    payload = torch.cat([torch.ones((n, 1), device=pos.device),
+                         canonicalize_normals(nrm), pos,
+                         (pos * pos).sum(1, keepdim=True)], 1).contiguous()
+    if kernel == "payload_moment_sums":
+        pid, _table, pc = _plane_problem(pos, nrm, mask, 6)
+        ids = torch.where(pid > 0, pid - 1, 4096).to(torch.int32)
+        cut = 8 * kernels.PAYMOM_ROWS
+
+        def run(fn, rows, init=None):
+            return fn(ids[rows], payload[rows], pc, 9, table_cap=4096,
+                      init=init)
+
+        fns = (kernels.payload_moment_sums_cuda,
+               payload_moment_sums_reference)
+    else:
+        rng = np.random.default_rng(5)
+        k = 96
+        idx = torch.from_numpy(rng.integers(0, n, k)).to(pos.device)
+        nk = canonicalize_normals(nrm)[idx]
+        ck = pos[idx]
+        table = adopt_table(nk, ck, (nk * ck).sum(1), (ck * ck).sum(1),
+                            torch.full((k,), 4000.0 ** 2, device=pos.device),
+                            torch.ones(k, dtype=torch.bool, device=pos.device))
+        lanes = torch.arange(128, dtype=torch.int32, device=pos.device)
+        holes = mask & torch.from_numpy(rng.uniform(size=n) < 0.5).to(
+            pos.device)
+        cut = 32 * kernels.ADOPT_ROWS
+
+        def run(fn, rows, init=None):
+            return fn(payload[rows], holes[rows], table, lanes,
+                      th_thickness=TH, th_cos=CTH, init=init)[2]
+
+        fns = (kernels.plane_adopt_cuda, plane_adopt_reference)
+    def tables(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    head, tail = slice(0, cut), slice(cut, n)
+    parts = []
+    for fn in fns:
+        whole = tables(run(fn, slice(0, n)))
+        parts.append(tables(run(fn, tail, run(fn, head))))
+        assert float(whole[0][:, 0].sum()) > 1000
+        for w_, p_ in zip(whole, parts[-1]):
+            assert torch.equal(w_, p_)
+    for k_, p_ in zip(*parts):  # kernel ≡ plain version, with init
+        assert torch.equal(k_, p_)
+
+
 def test_table_lookup_kernel_matches_plain(cuda):
     g = torch.Generator(device="cpu").manual_seed(8)
     ids = torch.randint(-3, 700, (50_000,), generator=g, dtype=torch.int32)

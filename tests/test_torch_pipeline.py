@@ -118,7 +118,8 @@ def test_port_imports_no_jax():
         "for m in ('raster', 'raster.ortho', 'raster.contours', 'io.png',\n"
         "          'io.obj', 'ops.scatter', 'ops.segsum', 'ops.stats_mxu',\n"
         "          'cli', 'profiling', 'seg.golden', 'native.binding',\n"
-        "          'core.pointset'):\n"
+        "          'core.pointset', 'dist', 'dist.mesh', 'dist.halo',\n"
+        "          'dist.sharded'):\n"
         "    assert 'buildingsegment_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'buildingsegment_tpu'))\n"
