@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kMaxQt = 128;
@@ -82,21 +84,6 @@ constexpr int kTileMaxKk = 64;    // longest list the warp design keeps
 __device__ __forceinline__ uint64_t knn_key(float d, int c) {
   return (static_cast<uint64_t>(__float_as_uint(d)) << 32) |
          static_cast<uint32_t>(c);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // Positions as float4 (x, y, z, 0); an invalid row as NaN.
@@ -276,8 +263,9 @@ __global__ void __launch_bounds__(32) knn_tile_kernel(
     const float4* src = pk + static_cast<size_t>(visit[vrow + v]) * ct +
                         h * chunk;
     float4* dst = stage + buf * chunk;
-    for (int e = lane; e < chunk; e += 32) cp_async16(dst + e, src + e);
-    cp_async_commit();
+    for (int e = lane; e < chunk; e += 32)
+      cp_async::copy16(dst + e, src + e);
+    cp_async::commit();
   };
   int v = 0, h = 0, buf = 0;
   fetch(0, 0, 0);
@@ -290,9 +278,9 @@ __global__ void __launch_bounds__(32) knn_tile_kernel(
     else
       ahead = false;
     if (ahead)
-      cp_async_wait<1>();
+      cp_async::wait<1>();
     else
-      cp_async_wait<0>();
+      cp_async::wait<0>();
     __syncwarp();
     const int cb = visit[vrow + v] * ct + h * chunk;
     const float4* cand = stage + buf * chunk;
@@ -307,7 +295,7 @@ __global__ void __launch_bounds__(32) knn_tile_kernel(
     tau = warp_tau(q);
     if (++v >= count || !(visit_d2[vrow + v] <= tau)) break;
   }
-  cp_async_wait<0>();  // a chunk fetched ahead may be in flight
+  cp_async::wait<0>();  // a chunk fetched ahead may be in flight
 
   // the sorted rows, written coalesced
   __syncwarp();

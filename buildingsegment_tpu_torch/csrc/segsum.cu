@@ -48,6 +48,9 @@
 // ceil128(n_live), capped at the table), else 0: one thread a row, a
 // direct gather (the TPU kernel's one-hot matmul over the live chunks).
 //
+// lookup_pair (#9 redesigned, below lookup_kernel): the finalize's two
+// lookups, the members' and the adopted holes', in one launch.
+//
 // lookup_cols (replaces _lookup_cols_kernel, wrapper table_lookup_cols,
 // which nothing in either package calls): out[c, i] = lut[id_i, c] + 0
 // for 0 <= id_i < bound, else 0, written column-major (f32[cols, n]),
@@ -217,6 +220,46 @@ __global__ void lookup_kernel(const int* __restrict__ ids,
   out[i] = (id >= 0 && id < bound) ? lut[id] : 0;
 }
 
+// lookup_pair: out[i] = lut_a[a_i] + lut_b[b_i], each term under #9's
+// live rule (0 <= id < its bound, else 0).  The finalize's two lookups
+// (members through lut_a, adopted holes through lut_b: disjoint supports)
+// in one launch.  Each block stages both tables' live rows in shared
+// memory (at most 2 x 4,097 ints in the finalize: 32 KB) and then maps
+// kPairRows rows, one thread a row in strides of the block: the id reads
+// and the writes are coalesced, the table reads hit shared memory.  A
+// pair of tables past kPairStageInts is read from device memory instead.
+constexpr int kPairThreads = 256;
+constexpr int kPairRows = 2048;          // rows a block
+constexpr int kPairStageInts = 12288;    // 48 KB
+
+__global__ void __launch_bounds__(kPairThreads)
+lookup_pair_kernel(const int* __restrict__ ids_a,
+                   const int* __restrict__ lut_a, int bound_a,
+                   const int* __restrict__ ids_b,
+                   const int* __restrict__ lut_b, int bound_b,
+                   int* __restrict__ out, int n) {
+  extern __shared__ int tab[];
+  const int* ta = lut_a;
+  const int* tb = lut_b;
+  if (bound_a + bound_b <= kPairStageInts) {
+    for (int i = threadIdx.x; i < bound_a; i += kPairThreads)
+      tab[i] = lut_a[i];
+    for (int i = threadIdx.x; i < bound_b; i += kPairThreads)
+      tab[bound_a + i] = lut_b[i];
+    __syncthreads();
+    ta = tab;
+    tb = tab + bound_a;
+  }
+  const int r1 = min(n, (blockIdx.x + 1) * kPairRows);
+  for (int i = blockIdx.x * kPairRows + threadIdx.x; i < r1;
+       i += kPairThreads) {
+    const int a = ids_a[i], b = ids_b[i];
+    const unsigned va = (a >= 0 && a < bound_a) ? ta[a] : 0;
+    const unsigned vb = (b >= 0 && b < bound_b) ? tb[b] : 0;
+    out[i] = static_cast<int>(va + vb);  // int32 wraps, as in PyTorch
+  }
+}
+
 __global__ void lookup_cols_kernel(const int* __restrict__ ids,
                                    const float* __restrict__ lut, int cols,
                                    int bound, float* __restrict__ out,
@@ -382,6 +425,19 @@ int bst_lookup(const int* ids, const int* lut, int bound, int* out, int n,
   lookup_kernel<<<(n + threads - 1) / threads, threads, 0,
                   static_cast<cudaStream_t>(stream)>>>(ids, lut, bound, out,
                                                         n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bst_lookup_pair(const int* ids_a, const int* lut_a, int bound_a,
+                    const int* ids_b, const int* lut_b, int bound_b, int* out,
+                    int n, void* stream) {
+  if (n <= 0 || bound_a < 0 || bound_b < 0) return cudaErrorInvalidValue;
+  const int smem = bound_a + bound_b <= kPairStageInts
+                       ? (bound_a + bound_b) * static_cast<int>(sizeof(int))
+                       : 0;
+  lookup_pair_kernel<<<(n + kPairRows - 1) / kPairRows, kPairThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      ids_a, lut_a, bound_a, ids_b, lut_b, bound_b, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -48,6 +48,8 @@ __all__ = [
     "stats_mxu_cuda",
     "seed_mxu_cuda",
     "table_lookup_cols_cuda",
+    "table_lookup_pair_cuda",
+    "segment_sums_cuda",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -56,9 +58,10 @@ _BUILD = os.path.join(_HERE, "_build")
 _SOURCES = (
     "label_sweep.cu", "compact_sweep.cu", "stats_sweep.cu", "seed_sweep.cu",
     "refine_sweep.cu", "segsum.cu", "adopt.cu", "knn_exact.cu",
-    "stats_mxu.cu",
+    "stats_mxu.cu", "segment_sum.cu",
 )
-_HEADERS = ("sweep_common.cuh", "block_fold.cuh", "select_rank.cuh")
+_HEADERS = ("sweep_common.cuh", "block_fold.cuh", "select_rank.cuh",
+            "cp_async.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -70,6 +73,7 @@ launch_counts = {
     "seed_sweep": 0, "refine_sweep": 0, "payload_moment_sums": 0,
     "table_lookup": 0, "plane_adopt": 0, "knn_exact": 0, "plane_sums": 0,
     "stats_mxu": 0, "seed_mxu": 0, "table_lookup_cols": 0,
+    "table_lookup_pair": 0, "segment_sums": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -182,10 +186,14 @@ def _bind() -> None:
     lib.bst_stats_mxu.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
     lib.bst_seed_mxu.argtypes = [_P] * 9 + [_I, _I, _F, _F, _I, _P]
     lib.bst_lookup_cols.argtypes = [_P, _P, _I, _I, _P, _I, _P]
+    lib.bst_lookup_pair.argtypes = [_P, _P, _I, _P, _P, _I, _P, _I, _P]
+    lib.bst_segment_keys.argtypes = [_P, _I, _I, _P, _P]
+    lib.bst_segment_sums.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 4 + [_P]
     for fn in (lib.bst_stats_sweep, lib.bst_seed_sweep, lib.bst_refine_sweep,
                lib.bst_paymom, lib.bst_lookup, lib.bst_adopt,
                lib.bst_knn_exact, lib.bst_plane_sums, lib.bst_stats_mxu,
-               lib.bst_seed_mxu, lib.bst_lookup_cols):
+               lib.bst_seed_mxu, lib.bst_lookup_cols, lib.bst_lookup_pair,
+               lib.bst_segment_keys, lib.bst_segment_sums):
         fn.restype = _I
     _lib = lib
 
@@ -561,6 +569,87 @@ def table_lookup_cuda(ids, lut, n_live):
                          out.data_ptr(), n, _stream(out))
     _check(lib, err, "table_lookup")
     launch_counts["table_lookup"] += 1
+    return out
+
+
+def table_lookup_pair_cuda(ids_a, lut_a, ids_b, lut_b, n_live):
+    """CUDA pair lookup (csrc/segsum.cu, #9 redesigned): both tables
+    staged in shared memory, one launch; see
+    :func:`buildingsegment_tpu_torch.ops.segsum.table_lookup_pair`."""
+    n = ids_a.shape[0]
+    ids_a = _cuda_tensor(ids_a, torch.int32, (n,), "ids_a")
+    ids_b = _cuda_tensor(ids_b, torch.int32, (n,), "ids_b")
+    lut_a = _cuda_tensor(lut_a, torch.int32, (lut_a.shape[0],), "lut_a")
+    lut_b = _cuda_tensor(lut_b, torch.int32, (lut_b.shape[0],), "lut_b")
+    out = torch.empty_like(ids_a)
+    if n == 0:
+        return out
+    lib = _load()
+    err = lib.bst_lookup_pair(
+        ids_a.data_ptr(), lut_a.data_ptr(), min(ceil128(n_live),
+                                                lut_a.shape[0]),
+        ids_b.data_ptr(), lut_b.data_ptr(), min(ceil128(n_live),
+                                                lut_b.shape[0]),
+        out.data_ptr(), n, _stream(out))
+    _check(lib, err, "table_lookup_pair")
+    launch_counts["table_lookup_pair"] += 1
+    return out
+
+
+#: widest rows the fixed-order segment sums take (kMaxCols in
+#: csrc/segment_sum.cu: a lane a column, at most 16 lanes an id)
+SEGMENT_SUMS_MAX_COLS = 16
+#: runs longer than this fold from shared memory, a block a run
+#: (kLongRun in csrc/segment_sum.cu)
+SEGMENT_SUMS_LONG_RUN = 256
+#: sizes and row counts the segment sums take: int32 positions and ids
+SEGMENT_SUMS_LIMIT = (1 << 31) - 1
+
+
+def segment_sums_cuda(idx, rows, size, init=None):
+    """CUDA fixed-order per-id sums (csrc/segment_sum.cu): the live keys
+    ordered stably by ``torch.sort``, then gather, fold and long-run fold
+    launched in one call; see
+    :func:`buildingsegment_tpu_torch.ops.segsum.segment_sums`."""
+    m = idx.shape[0]
+    if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64) \
+            or not idx.is_cuda:
+        raise ValueError(f"segment_sums: idx must be a CUDA int32/int64 "
+                         f"[M], got {idx.dtype}{tuple(idx.shape)} on "
+                         f"{idx.device}")
+    cols = rows.shape[1] if rows.dim() == 2 else 0
+    if not 1 <= cols <= SEGMENT_SUMS_MAX_COLS:
+        raise ValueError(f"segment_sums: rows must be [M, 1..."
+                         f"{SEGMENT_SUMS_MAX_COLS}], got {tuple(rows.shape)}")
+    if not (1 <= size < SEGMENT_SUMS_LIMIT and m < SEGMENT_SUMS_LIMIT):
+        raise ValueError(f"segment_sums: size {size} or {m} rows outside "
+                         f"1 <= size < 2^31 - 1, rows < 2^31 - 1")
+    rows = _cuda_tensor(rows, torch.float32, (m, cols), "rows")
+    if init is not None:
+        init = _cuda_tensor(init, torch.float32, (size, cols), "init")
+    idx = idx.long().contiguous()
+    dev = rows.device
+    # run bounds (start, end) of every live id, then the long-run count
+    runs = torch.zeros(2 * size + 1, dtype=torch.int32, device=dev)
+    key = torch.empty(m, dtype=torch.int32, device=dev)
+    lib = _load()
+    stream = _stream(rows)
+    _check(lib, lib.bst_segment_keys(idx.data_ptr(), m, size,
+                                     key.data_ptr(), stream), "segment_sums")
+    skey, perm = torch.sort(key, stable=True)
+    # the rows in sorted order, and 4 floats of slack: the long-run fold
+    # copies 16-byte aligned spans
+    staged = torch.empty(m * cols + 4, dtype=torch.float32, device=dev)
+    long_ids = torch.empty(m // (SEGMENT_SUMS_LONG_RUN + 1) + 1,
+                           dtype=torch.int32, device=dev)
+    out = torch.empty((size, cols), dtype=torch.float32, device=dev)
+    err = lib.bst_segment_sums(
+        skey.data_ptr(), perm.data_ptr(), rows.data_ptr(),
+        None if init is None else init.data_ptr(), m, cols, size,
+        staged.data_ptr(), runs.data_ptr(), long_ids.data_ptr(),
+        out.data_ptr(), stream)
+    _check(lib, err, "segment_sums")
+    launch_counts["segment_sums"] += 1
     return out
 
 

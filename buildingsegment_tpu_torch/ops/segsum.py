@@ -7,10 +7,13 @@ Port of ``plane_payload_moment_sums`` (kernel ``_paymom_kernel``),
 function in transposed layout) in ``buildingsegment_tpu/ops/segsum.py``.
 The first two serve the multigrid finalize, ``plane_sums`` the raster's
 ground histogram; ``table_lookup_cols`` has no caller, in the JAX
-package either.  The TPU kernels replaced XLA's
-sort-based scatter and gather with one-hot matmuls over the live
-128-id chunks; on Hopper a gather is a gather, and a segment sum is a
-fixed-order reduction (``csrc/segsum.cu``).
+package either.  ``table_lookup_pair`` is the finalize's two lookups in
+one launch, and ``segment_sums`` the fixed-order per-id sums that stand
+in for the JAX package's XLA scatter-adds (``csrc/segment_sum.cu``).
+The TPU kernels replaced XLA's sort-based scatter and gather with
+one-hot matmuls over the live 128-id chunks; on Hopper a gather is a
+gather, and a segment sum is a fixed-order reduction
+(``csrc/segsum.cu``).
 
 Live bound: the TPU kernels touch only the id chunks below
 ``ceil(n_live / 128)``, so an id counts iff ``0 ≤ id < ceil128(n_live)``
@@ -36,9 +39,11 @@ from buildingsegment_tpu_torch import kernels
 
 __all__ = [
     "row_order_sums",
+    "segment_sums", "segment_sums_reference",
     "block_order_sums",
     "plane_payload_moment_sums", "payload_moment_sums_reference",
     "table_lookup", "table_lookup_reference",
+    "table_lookup_pair", "table_lookup_pair_reference",
     "table_lookup_cols", "table_lookup_cols_reference",
     "plane_sums", "plane_sums_reference",
 ]
@@ -75,6 +80,34 @@ def row_order_sums(idx: torch.Tensor, rows: torch.Tensor, size: int,
         return init.to(rows.dtype).clone().index_add_(0, idx, rows)
     out = torch.zeros((size, cols), dtype=rows.dtype, device=rows.device)
     return out.index_add_(0, idx, rows)
+
+
+def segment_sums_reference(idx: torch.Tensor, rows: torch.Tensor, size: int,
+                           init: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_sums`: :func:`row_order_sums`
+    over the rows whose id lies in [0, ``size``), onto +0 + ``init``."""
+    live = (idx >= 0) & (idx < size)
+    return row_order_sums(idx[live], rows[live], size,
+                          None if init is None else init.to(rows.dtype) + 0.0)
+
+
+def segment_sums(idx: torch.Tensor, rows: torch.Tensor, size: int,
+                 init: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[size, C] per-id sums of ``rows`` [M, C] (C ≤ 16 on the card) in
+    a fixed order: ``out[id] = ((+0 + init[id]) + rows[r0]) + rows[r1] …``
+    over r0 < r1 < … the rows with ``idx == id``, from +0 without
+    ``init``.  Rows whose id lies outside [0, ``size``) add nothing: a
+    caller sends the rows it drops to an id at or above ``size``.  Ids
+    without rows get +0 + ``init`` (or +0).  The order does not depend on the
+    device, so a shard continuing the sums of the shards before it
+    (``init``) gives the one-device sums at any shard size.
+
+    CUDA tensors launch the CUDA kernel (csrc/segment_sum.cu), CPU
+    tensors run :func:`segment_sums_reference`."""
+    if rows.is_cuda:
+        return kernels.segment_sums_cuda(idx, rows, size, init)
+    return segment_sums_reference(idx, rows, size, init=init)
 
 
 def block_order_sums(key_block: torch.Tensor, key_id: torch.Tensor,
@@ -172,6 +205,24 @@ def table_lookup(ids, lut, n_live) -> torch.Tensor:
     if ids.is_cuda:
         return kernels.table_lookup_cuda(ids, lut, n_live)
     return table_lookup_reference(ids, lut, n_live)
+
+
+def table_lookup_pair_reference(ids_a, lut_a, ids_b, lut_b,
+                                n_live) -> torch.Tensor:
+    """Plain PyTorch version of :func:`table_lookup_pair`."""
+    return (table_lookup_reference(ids_a, lut_a, n_live)
+            + table_lookup_reference(ids_b, lut_b, n_live))
+
+
+def table_lookup_pair(ids_a, lut_a, ids_b, lut_b, n_live) -> torch.Tensor:
+    """``table_lookup(ids_a, lut_a, n_live) + table_lookup(ids_b, lut_b,
+    n_live)`` in one launch: the multigrid finalize's member and
+    adopted-hole lookups (disjoint supports).  CUDA tensors launch the
+    CUDA kernel, CPU tensors run :func:`table_lookup_pair_reference`."""
+    if ids_a.is_cuda:
+        return kernels.table_lookup_pair_cuda(ids_a, lut_a, ids_b, lut_b,
+                                              n_live)
+    return table_lookup_pair_reference(ids_a, lut_a, ids_b, lut_b, n_live)
 
 
 def table_lookup_cols_reference(ids, lut, n_live) -> torch.Tensor:

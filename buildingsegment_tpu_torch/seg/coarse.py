@@ -53,8 +53,9 @@ from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
 from buildingsegment_tpu_torch.ops.segsum import (
     plane_payload_moment_sums,
     plane_sums,
-    row_order_sums,
+    segment_sums,
     table_lookup,
+    table_lookup_pair,
 )
 from buildingsegment_tpu_torch.ops.window_sweep import (
     halo_columns,
@@ -336,13 +337,15 @@ def segment_planes_multigrid(
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     lut = torch.cat([zero, torch.where(keep[parent] & live_o, rank[parent],
                                        0).to(torch.int32)])
-    new_id = table_lookup(torch.where(member, pid, 0).to(torch.int32), lut,
-                          n_live + 1)
-    if adopted is not None:
-        # disjoint supports: members and adopted holes
+    pid_member = torch.where(member, pid, 0).to(torch.int32)
+    if adopted is None:
+        new_id = table_lookup(pid_member, lut, n_live + 1)
+    else:
+        # disjoint supports: members and adopted holes, one launch
         lut2 = torch.cat([zero, torch.where(keep, rank, 0).to(torch.int32)])
         pid_adopt = torch.where(adopted, adopt_row + 1, 0).to(torch.int32)
-        new_id = new_id + table_lookup(pid_adopt, lut2, n_live + 1)
+        new_id = table_lookup_pair(pid_member, lut, pid_adopt, lut2,
+                                   n_live + 1)
     plane_idx = torch.where(new_id > 0, new_id, -1).to(torch.int32)
 
     # dense table: kept merged-root rows in rank order
@@ -446,7 +449,7 @@ def _merge_coplanar(acc, acc_mq, pc, rows_p, cmag, *, edge_mm, th_thickness,
     for _ in range(MERGE_JUMPS):
         parent = torch.minimum(parent, parent[parent])
     del ok_pair, r2m, num, mm, nm3, di3, dj3, q3, d2, inplane2, reach
-    return row_order_sums(parent, acc, L), parent, acc_m, c_t
+    return segment_sums(parent, acc, L), parent, acc_m, c_t
 
 
 def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
@@ -476,7 +479,7 @@ def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
         + 2.0 * acc_m[:, 5] * nr_f[:, 1] * nr_f[:, 2]
     )
     off_f = _dot3(c_t - cr_f, nr_f)
-    flat_num = row_order_sums(
+    flat_num = segment_sums(
         parent, (r2n_f + cnt_o * off_f * off_f)[:, None], L)[:, 0]
     flat_ok = flat_num / torch.clamp_min(cnt_r, 1.0) <= (
         0.25 * th_thickness) ** 2

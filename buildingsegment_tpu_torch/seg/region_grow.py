@@ -57,7 +57,7 @@ import torch
 from buildingsegment_tpu_torch.ops.compact_sweep import COMPACT_L, compact_sweep
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.prefix import prefix_sum_i32
-from buildingsegment_tpu_torch.ops.segsum import row_order_sums
+from buildingsegment_tpu_torch.ops.segsum import segment_sums
 from buildingsegment_tpu_torch.ops.stats_mxu import mxu_halo, seed_sweep_mxu
 from buildingsegment_tpu_torch.ops.window_sweep import (
     halo_columns,
@@ -286,10 +286,11 @@ def segment_planes(
     gid = rows_ng[base:base + n]  # this rank's rows' global ids
 
     def fold_sums(idx, rows, size):
-        """row_order_sums over every rank's rows, in global row order."""
+        """segment_sums over every rank's rows, in global row order (rows
+        with an id at or above ``size`` add nothing)."""
         if group is None:
-            return row_order_sums(idx, rows, size)
-        return group.fold(lambda init: row_order_sums(idx, rows, size, init),
+            return segment_sums(idx, rows, size)
+        return group.fold(lambda init: segment_sums(idx, rows, size, init),
                           (size, rows.shape[1]))
 
     # the kNN-graph edges i → neigh[i, 1:], gated by validity and (with
@@ -443,9 +444,9 @@ def segment_planes(
             mp = torch.where(valid[:, None], torch.cat([sns / ln, pos], 1), 0.0)
             acc = None
         else:
-            tgt = torch.where(valid, label, ng).long()
+            tgt = torch.where(valid, label, ng).long()  # ng: dropped
             payload = stats_payload(label, valid, with_sq=True)
-            acc = fold_sums(tgt, payload, ng + 1)[:ng]
+            acc = fold_sums(tgt, payload, ng)
             model_n, model_c, _r, cnt = _acc_models(acc)
             flag = cnt > 0
 
@@ -496,9 +497,9 @@ def segment_planes(
         """Per-label mean models (unit normal, center) by segment sums,
         indexed by label value."""
         valid = label < inf
-        tgt = torch.where(valid, label, ng).long()
-        acc = row_order_sums(tgt, stats_payload(label, valid, with_sq=False),
-                           ng + 1)[:ng]
+        tgt = torch.where(valid, label, ng).long()  # ng: dropped
+        acc = segment_sums(tgt, stats_payload(label, valid, with_sq=False),
+                           ng)
         model_n, model_c, _r, _cnt = _acc_models(acc)
         return model_n, model_c
 
@@ -548,9 +549,9 @@ def segment_planes(
         are the same as over all of them."""
         cap = min(max_planes, ng)
         valid = label < inf
-        tgt = torch.where(valid, label, ng).long()
-        acc = row_order_sums(tgt, stats_payload(label, valid, with_sq=True),
-                           ng + 1)[:ng]
+        tgt = torch.where(valid, label, ng).long()  # ng: dropped
+        acc = segment_sums(tgt, stats_payload(label, valid, with_sq=True),
+                           ng)
         rank, top_lab, live = compact_slots(acc[:, 0] > 0, cap)
         used = max(min(cap, live_bound), 1)
         top_lab, live = top_lab[:used], live[:used]
@@ -702,8 +703,8 @@ def segment_planes(
     in_table = (plane_id > 0) & (plane_id <= max_planes)
     seg = torch.where(in_table, plane_id - 1, max_planes).long()
     fin_payload = stats_payload(label, plane_id > 0, with_sq=False)
-    acc_fin = fold_sums(seg, fin_payload, max_planes + 1)
-    plane_normal, plane_center, _r_fin, cnt_f = _acc_models(acc_fin[:max_planes])
+    acc_fin = fold_sums(seg, fin_payload, max_planes)  # max_planes: dropped
+    plane_normal, plane_center, _r_fin, cnt_f = _acc_models(acc_fin)
     cnt = cnt_f.to(torch.int32)
     plane_normal = torch.where((cnt > 0)[:, None], plane_normal, 0.0)
     plane_center = torch.where((cnt > 0)[:, None], plane_center, 0.0)

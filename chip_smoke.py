@@ -20,8 +20,9 @@ Phases, in order; the first failure exits non-zero:
    (``stats_rank_mode="mxu"``, ``seg_seed_mode="mxu"``: kernels #15 and
    #16 in place of #3 and #4), recording the inputs each path hands to
    every kernel wrapper;
-4. hold each of the twelve kernels the paths launch against its plain
-   PyTorch version on the inputs of every call the paths made — all
+4. hold each of the kernels the paths launch (the pair lookup, #9
+   redesigned, and the fixed-order segment sums among them) against its
+   plain PyTorch version on the inputs of every call the paths made — all
    must match bit for bit; for #2 the per-slot sums of its stats phase
    too (``stats_out`` against ``compact_slot_stats``) — and time both
    with CUDA events at the
@@ -36,7 +37,12 @@ Phases, in order; the first failure exits non-zero:
    #16 is also held on its inputs with balls at or above 1e29, +inf and
    NaN on every sixth row (its full walk over all C candidates); #2's
    card ms by phase (``torch.profiler``, each launch of the sweep) over
-   the default path's calls, beside each call's live slot bound;
+   the default path's calls, beside each call's live slot bound; the
+   segment sums over one pass of each path's calls, timed beside the
+   accumulating ``index_put_`` they replace and their stable sort alone,
+   with each call's longest live run and the bound (bytes over 3.35
+   TB/s, or the longest run's add chain at 4 cycles an add over the SM
+   clock), and their card and host ms on the default and pallas paths;
 5. small-input check: the window configurations, the ``mxu`` path and
    the exact-kNN methods "brute" and "pallas" on a 9k-point scene on the
    card and on the CPU (plain versions) — same plane count, cross
@@ -50,12 +56,15 @@ Phases, in order; the first failure exits non-zero:
    ≥ 0.9853 (the JAX package's exact-kNN result, 0.995279 with "brute"
    on the CPU, − 0.01), the ``mxu`` path the default path's 7 planes at
    ≥ 0.9723 with cross agreement ≥ 0.99 against the default path's
-   labels of this run, and #3 and #4 must not launch there.  Three more
+   labels of this run, and #3 and #4 must not launch there; #9 must not
+   launch on the default path (every finalize adopts holes: the pair
+   lookup renumbers).  Three more
    runs of the default, pallas and ``mxu`` paths give their stage times;
 7. ``DEFAULT_CONFIG`` on the same house at 105 mm spacing (60,914
    points): "auto" must resolve to "brute" and give 18 planes at truth
    agreement ≥ 0.6239 (JAX on the CPU: 0.633894 − 0.01), plus three
-   runs of stage times;
+   runs of stage times; every segment-sum call of its graph solve held
+   and timed as in step 4;
 8. the BASELINE config-2 shape: ``knn_pallas(k=16)`` on the house at
    25.4 mm spacing (1,046,391 points, capacity 1,046,528), Morton-sorted;
    the whole call and the kernel are timed, the kernel beside its bound
@@ -87,9 +96,11 @@ Phases, in order; the first failure exits non-zero:
    Its wall time gives the config-5 Mpts/s; ``render_ortho_views`` on
    scan 0 gives the render's own span.  #10 ``table_lookup_cols``, which
    no path calls, is held bit for bit against its plain version on the
-   ids and live bounds of the default path's ``table_lookup`` calls
-   (slice scene and capacity 1,179,648) with a seeded f32[cap, 3] table,
-   and timed at the largest.  The redesigned kernels (#1, #2, #3, #4,
+   member ids and live bounds of the default path's ``table_lookup_pair``
+   calls (slice scene and capacity 1,179,648) with a seeded f32[cap, 3]
+   table, and timed at the largest (CUDA events, card ms, host ms; in
+   step 4 also on the slice's inputs).  The redesigned kernels (#1, #2,
+   #3, #4,
    #6, #11 and #13) are reported at both sizes: the slice scene's default
    path and config 5's scan 0 (#3, #4, #6, #11 and #13 at 1,179,648
    rows; #1 also on the single-level path); #6's line names its hole
@@ -114,8 +125,10 @@ Phases, in order; the first failure exits non-zero:
    agreement ≥ 0.99 and truth agreement within 0.01; on the slice's
    scene #8 ``plane_sums`` launches once at False (the outermost
    finalize's sums) and never at "merge", #13 only at the inner level,
-   every #8 call held bit for bit against its plain version and timed
-   beside its bound;
+   #9 once (the outermost finalize adopts no holes) and the pair lookup
+   once (the inner level), every #8 and #9 call held bit for bit
+   against its plain version and timed beside its bound (card and host
+   ms);
 14. ``estimate_normals_window`` at bench.py's width: the house at 25 mm
    (1,082,304 points, capacity 1,083,392, Morton-sorted), radius 100,
    w = 64: #3 in radius-only mode (k = 1, no cap) launches once a call,
@@ -147,7 +160,8 @@ Phases, in order; the first failure exits non-zero:
    to 0 just before, read just after) every kernel of the path must
    launch on every rank.  Printed per rank: wall time and CUDA-event ms,
    sweeps, host syncs, reductions, gathers, halo bytes and messages (a
-   sweep), host stagings, launch counts.  Step 4 also gives #9's card ms
+   sweep), host stagings, launch counts, and each rank's segment sums
+   timed as in step 4.  Step 4 also gives the pair lookup's card ms
    beside an empty kernel's (the launch floor).
 
 The last three lines of stdout are the card line, the kernels' JSON
@@ -187,32 +201,37 @@ EXPECT = {"default": (7, 0.9723), "single_level": (8, 0.9633),
           "pallas": (7, 0.9853), "auto": (18, 0.6239), "mxu": (7, 0.9723)}
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# cycles of one dependent f32 add: the fixed-order sums' chain bound
+F32_ADD_CYCLES = 4
 SRC = "buildingsegment_tpu_torch/csrc"
-JAX_OPS = "buildingsegment_tpu/ops"
+JAX_PKG = "buildingsegment_tpu"
 # kernel → (CUDA source, the TPU kernel it replaces, timing reps for the
-# kernel and for its plain version)
+# kernel and for its plain version); the segment sums replace the JAX
+# package's XLA scatter-adds, no TPU kernel
 KERNELS = {
-    "stats_sweep": ("stats_sweep.cu", "stats_sweep.py:100", 50, 3),
-    "seed_sweep": ("seed_sweep.cu", "window_sweep.py:519", 50, 3),
-    "label_sweep": ("label_sweep.cu", "window_sweep.py:731", 50, 5),
-    "compact_sweep": ("compact_sweep.cu", "compact_sweep.py:100", 20, 3),
-    "refine_sweep": ("refine_sweep.cu", "window_sweep.py:332", 50, 3),
-    "payload_moment_sums": ("segsum.cu", "segsum.py:315", 50, 3),
-    "table_lookup": ("segsum.cu", "segsum.py:141", 50, 5),
-    "plane_adopt": ("adopt.cu", "adopt.py:87", 50, 3),
-    "knn_exact": ("knn_exact.cu", "pallas_knn.py:95", 20, 1),
-    "plane_sums": ("segsum.cu", "segsum.py:41", 50, 3),
-    "stats_mxu": ("stats_mxu.cu", "stats_mxu.py:75", 20, 1),
-    "seed_mxu": ("stats_mxu.cu", "stats_mxu.py:262", 50, 1),
-    "table_lookup_cols": ("segsum.cu", "segsum.py:222", 50, 5),
+    "stats_sweep": ("stats_sweep.cu", "ops/stats_sweep.py:100", 50, 3),
+    "seed_sweep": ("seed_sweep.cu", "ops/window_sweep.py:519", 50, 3),
+    "label_sweep": ("label_sweep.cu", "ops/window_sweep.py:731", 50, 5),
+    "compact_sweep": ("compact_sweep.cu", "ops/compact_sweep.py:100", 20, 3),
+    "refine_sweep": ("refine_sweep.cu", "ops/window_sweep.py:332", 50, 3),
+    "payload_moment_sums": ("segsum.cu", "ops/segsum.py:315", 50, 3),
+    "table_lookup": ("segsum.cu", "ops/segsum.py:141", 50, 5),
+    "table_lookup_pair": ("segsum.cu", "ops/segsum.py:141", 50, 5),
+    "plane_adopt": ("adopt.cu", "ops/adopt.py:87", 50, 3),
+    "knn_exact": ("knn_exact.cu", "ops/pallas_knn.py:95", 20, 1),
+    "plane_sums": ("segsum.cu", "ops/segsum.py:41", 50, 3),
+    "stats_mxu": ("stats_mxu.cu", "ops/stats_mxu.py:75", 20, 1),
+    "seed_mxu": ("stats_mxu.cu", "ops/stats_mxu.py:262", 50, 1),
+    "table_lookup_cols": ("segsum.cu", "ops/segsum.py:222", 50, 5),
+    "segment_sums": ("segment_sum.cu", "seg/region_grow.py:453", 20, 3),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
     "default": ("stats_sweep", "seed_sweep", "label_sweep", "compact_sweep",
-                "refine_sweep", "payload_moment_sums", "table_lookup",
-                "plane_adopt"),
-    "single_level": ("label_sweep", "compact_sweep"),
-    "pallas": ("knn_exact",),
+                "refine_sweep", "payload_moment_sums", "table_lookup_pair",
+                "plane_adopt", "segment_sums"),
+    "single_level": ("label_sweep", "compact_sweep", "segment_sums"),
+    "pallas": ("knn_exact", "segment_sums"),
 }
 # the block-form variant path: #15 and #16 in place of #3 and #4
 PATH_KERNELS["mxu"] = ("stats_mxu", "seed_mxu") + PATH_KERNELS["default"][2:]
@@ -220,17 +239,19 @@ MXU_REPLACES = {"stats_mxu": "stats_sweep", "seed_mxu": "seed_sweep"}
 # the multi-scan render path runs the default path and the raster
 PATH_KERNELS["render"] = PATH_KERNELS["default"] + ("plane_sums",)
 # the path whose calls and launches each kernel reports (#10 has no
-# caller: it is held on the render path's lookup inputs)
+# caller: it is held on the render path's lookup inputs; #9 serves the
+# finalizes that adopt no holes, as at heal=False)
 MAIN_PATH = {name: path for path in ("single_level", "pallas", "default")
              for name in PATH_KERNELS[path]}
 MAIN_PATH.update(plane_sums="render", stats_mxu="mxu", seed_mxu="mxu",
-                 table_lookup_cols="render")
+                 table_lookup_cols="render", table_lookup="heal_false")
 # the wrapper argument whose length is the call's row count
 ROWS_ARG = {"stats_sweep": 1, "seed_sweep": 2, "label_sweep": 4,
             "compact_sweep": 4, "refine_sweep": 2, "payload_moment_sums": 0,
             "table_lookup": 0, "plane_adopt": 1, "knn_exact": 1,
             "plane_sums": 0, "stats_mxu": 1, "seed_mxu": 2,
-            "table_lookup_cols": 0}
+            "table_lookup_cols": 0, "table_lookup_pair": 0,
+            "segment_sums": 0}
 # the seeded table of the #10 check: f32[cap, LOOKUP_COLS]
 LOOKUP_COLS = 3
 # balls of #16's full walk, on every sixth row of its held inputs: the
@@ -340,15 +361,115 @@ def card_ms(torch, fn, reps=20):
     return total / 1e3 / reps if total else None
 
 
+def host_ms(torch, fn, reps=50):
+    """Host milliseconds to issue a call of ``fn``: ``reps`` calls with no
+    synchronise between them (after one warm-up), over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def timed_row(torch, name, row, calls, cuda_fn, where, card):
-    """Add the profiler's card ms of the first call at the largest row
-    count to a kernel's row, and print it."""
+    """Add the profiler's card ms and the host issue ms of the first call
+    at the largest row count to a kernel's row, and print them."""
     big = max(n for n, _a, _k in calls)
     _n, args, kw = next(c for c in calls if c[0] == big)
     row["card_ms"] = card_ms(torch, lambda: cuda_fn(*args, **kw))
-    print(f"{name} ({where}): card ms {row['card_ms']} a call (profiler), "
-          f"bound {row['bound_ms']:.6f} ms ({card})")
+    row["host_ms"] = host_ms(torch, lambda: cuda_fn(*args, **kw))
+    print(f"{name} ({where}, {big} rows): card ms {row['card_ms']} a call "
+          f"(profiler), host ms {row['host_ms']:.4f}, bound "
+          f"{row['bound_ms']:.6f} ms ({card})")
     return row
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz():
+    """The card's largest SM clock (nvidia-smi), Hz."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    try:
+        return float(res.stdout.strip().splitlines()[0]) * 1e6
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no SM clock: {res.stdout!r} {res.stderr!r}")
+
+
+def segment_runs(torch, args):
+    """(live rows, the longest live run) of one ``segment_sums`` call: the
+    rows whose id lies in [0, size), and the most rows of one id."""
+    idx, _rows, size, _init = args
+    live = idx[(idx >= 0) & (idx < size)]
+    if live.numel() == 0:
+        return 0, 0
+    return int(live.numel()), int(torch.bincount(live.long()).max())
+
+
+def index_put_call(torch, args):
+    """The yardstick of the segment sums: the call the port made before
+    (``row_order_sums`` on the card), one accumulating ``index_put_`` of
+    the rows into a zeroed table with a row for the ids outside the
+    table (the callers' dump id), ``init``'s rows first — made ready
+    here, so the returned callable times the fill and the call alone."""
+    idx, rows, size, init = args
+    ids = torch.where((idx >= 0) & (idx < size), idx, size).long()
+    if init is not None:
+        ids = torch.cat([torch.arange(size, device=ids.device), ids])
+        rows = torch.cat([init, rows])
+
+    def run():
+        return torch.zeros((size + 1, rows.shape[1]), dtype=rows.dtype,
+                           device=rows.device).index_put_(
+            (ids,), rows, accumulate=True)
+    return run
+
+
+def segment_sums_record(torch, where, calls, card, reps=3):
+    """The segment sums on one path's captured calls: each call's live
+    rows and longest live run; the bounds (bytes over 3.35 TB/s; the
+    longest run's add chain at 4 cycles an add over the SM clock) summed
+    over the calls; the kernel, its stable sort alone and the
+    accumulating ``index_put_`` it replaces, each timed over one pass of
+    all the calls (CUDA events).  Printed; returns the record."""
+    from buildingsegment_tpu_torch import kernels
+
+    clock = sm_clock_hz()
+    per, keys, lib = [], [], []
+    t_bytes = t_chain = 0.0
+    for n, args, kw in calls:
+        out = kernels.segment_sums_cuda(*args, **kw)
+        moved, _ops, _note = work(torch, "segment_sums", args, kw, out)
+        live, longest = segment_runs(torch, args)
+        per.append([n, args[1].shape[1], live, longest])
+        t_bytes += moved / HBM_BYTES_PER_S * 1e3
+        t_chain += longest * F32_ADD_CYCLES / clock * 1e3
+        idx, _rows, size, _init = args
+        keys.append(torch.where((idx >= 0) & (idx < size), idx, size).int())
+        lib.append(index_put_call(torch, args))
+    ms = cuda_ms(torch, lambda: [kernels.segment_sums_cuda(*a, **k)
+                                 for _n, a, k in calls], reps)
+    sort_ms = cuda_ms(torch, lambda: [torch.sort(k, stable=True)
+                                      for k in keys], reps)
+    lib_ms = cuda_ms(torch, lambda: [f() for f in lib], reps)
+    rec = {"calls": len(calls), "rows_cols_live_longest": per, "ms": ms,
+           "sort_ms": sort_ms, "index_put_ms": lib_ms,
+           "bytes_bound_ms": t_bytes, "chain_bound_ms": t_chain,
+           "bound_ms": max(t_bytes, t_chain), "sm_clock_hz": clock}
+    longest = max((p[3] for p in per), default=0)
+    print(f"segment_sums ({where}): {len(calls)} calls, rows "
+          f"{sorted({p[0] for p in per})}, cols {sorted({p[1] for p in per})}"
+          f", longest live run a call {[p[3] for p in per]}; one pass: "
+          f"kernel {ms:.4f} ms (its stable sort alone {sort_ms:.4f}) vs "
+          f"accumulating index_put_ {lib_ms:.4f} ms; bound "
+          f"{rec['bound_ms']:.6f} ms (bytes {t_bytes:.6f}, chain "
+          f"{t_chain:.6f}: longest run {longest} x {F32_ADD_CYCLES} cycles "
+          f"at {clock / 1e6:.0f} MHz) ({card})")
+    return rec
 
 
 def window_pairs(torch, mask, w):
@@ -455,8 +576,16 @@ def work(torch, name, args, kw, out):
         # the payload is read for live rows only
         moved -= (ids.shape[0] - live) * payload.shape[1] * 4
         ops = live * 23
-    elif name in ("table_lookup", "table_lookup_cols"):
+    elif name in ("table_lookup", "table_lookup_cols", "table_lookup_pair"):
         ops = 0
+    elif name == "segment_sums":
+        idx, rows = args[0], args[1]
+        live, longest = segment_runs(torch, args)
+        # the rows are read for live rows only; one add a live element
+        moved -= (idx.shape[0] - live) * rows.shape[1] * 4
+        ops = live * rows.shape[1]
+        note = (f"; {live} live rows of {idx.shape[0]}, longest run "
+                f"{longest}")
     elif name == "plane_sums":
         ids, payload = args[0], args[1]
         live_bound = min(-(-args[2] // 128), -(-kw["table_cap"] // 128)) * 128
@@ -646,6 +775,8 @@ def hold_kernel(torch, name, path, calls, cuda_fn, plain_fn, card):
         library_ms = knn_library_ms(torch, args, kw)
     elif name == "plane_sums":
         library_ms = segsum_library_ms(torch, args, kw)
+    elif name == "segment_sums":
+        library_ms = cuda_ms(torch, index_put_call(torch, args), plain_reps)
     else:
         library_ms = None
     row = dict(rows=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -687,11 +818,12 @@ def block_vs_exact(torch, name, calls, cuda_fns, card, where):
 
 
 def lookup_cols_calls(torch, calls, seed):
-    """#10's inputs from captured ``table_lookup`` calls: the same ids and
-    live bound, with a seeded f32[cap, LOOKUP_COLS] table."""
+    """#10's inputs from captured ``table_lookup_pair`` calls: the same
+    member ids and live bound, with a seeded f32[cap, LOOKUP_COLS]
+    table."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     out = []
-    for n, (ids, lut, n_live), _kw in calls:
+    for n, (ids, lut, _ids_b, _lut_b, n_live), _kw in calls:
         table = torch.randn((lut.shape[0], LOOKUP_COLS), generator=g)
         out.append((n, (ids, table.to(ids.device), n_live), {}))
     return out
@@ -861,9 +993,11 @@ def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches,
                  f"{len(seen['plane_sums'])} times")
         print(f"warm-up run, render: calls "
               f"{ {k: len(v) for k, v in seen.items()} }")
-        cols_calls += lookup_cols_calls(torch, seen["table_lookup"], 1)
+        cols_calls += lookup_cols_calls(torch, seen["table_lookup_pair"], 1)
         phases = compact_phases(torch, seen["compact_sweep"], card,
                                 "config 5, four scans")
+        seg_rec = segment_sums_record(torch, "config 5, four scans",
+                                      seen["segment_sums"], card)
         for name in PATH_KERNELS["render"]:
             results[("render", name)] = hold_kernel(
                 torch, name, "render", seen.pop(name), cuda_fns[name],
@@ -977,7 +1111,7 @@ def multiscan_phase(torch, np, hooks, cuda_fns, card, results, launches,
         "launches": launches["render"], "per_scan": per_scan,
         "raster_rel_err": err, "raster_tol": tol, "png_max_diff": png_diff,
         "render_span_s": [min(spans), max(spans)],
-        "compact_phases": phases, "card": card,
+        "compact_phases": phases, "segment_sums": seg_rec, "card": card,
     }, outs[0].plane_idx
 
 
@@ -1104,7 +1238,8 @@ def scenes_phase(torch, np, card):
 
 def heal_phase(torch, np, card, src, dst, pts, truth):
     """The multigrid ``heal`` switch; see the module docstring, step 13.
-    Returns (the record, #8's row on the multigrid path)."""
+    Returns (the record, #8's row on the multigrid path, #9's row and the
+    launch counts of the slice run at heal=False)."""
     from buildingsegment_tpu_torch import kernels, pipeline
     from buildingsegment_tpu_torch.ops import segsum
     from buildingsegment_tpu_torch.seg import coarse
@@ -1114,9 +1249,11 @@ def heal_phase(torch, np, card, src, dst, pts, truth):
 
     spts, struth = make_building_cloud(**SMALL_SCENE)
     hook = {"plane_sums": (coarse, "plane_sums",
-                           segsum.plane_sums_reference)}
+                           segsum.plane_sums_reference),
+            "table_lookup": (coarse, "table_lookup",
+                             segsum.table_lookup_reference)}
     multigrid = pipeline.segment_planes_multigrid
-    rec, row = {}, None
+    rec, row, row9, launched_false = {}, None, None, None
     for heal in (False, "merge"):
         pipeline.segment_planes_multigrid = functools.partial(multigrid,
                                                               heal=heal)
@@ -1144,8 +1281,11 @@ def heal_phase(torch, np, card, src, dst, pts, truth):
             launched = dict(kernels.launch_counts)
         finally:
             pipeline.segment_planes_multigrid = multigrid
+        # the outermost finalize adopts no holes: #9 renumbers there, the
+        # pair lookup at the inner level
         want = {"plane_sums": int(heal is False), "plane_adopt": 1,
-                "payload_moment_sums": 1 + int(heal is not False)}
+                "payload_moment_sums": 1 + int(heal is not False),
+                "table_lookup": 1, "table_lookup_pair": 1}
         got = {k: launched[k] for k in want}
         if got != want:
             fail(f"heal={heal!r}: launches {got}, expected {want}")
@@ -1170,7 +1310,14 @@ def heal_phase(torch, np, card, src, dst, pts, truth):
                             kernels.plane_sums_cuda, "multigrid heal=False",
                             card)
             row["launches"] = launched["plane_sums"]
-    return rec, row
+            row9 = hold_kernel(torch, "table_lookup", "multigrid heal=False",
+                               seen["table_lookup"], kernels.table_lookup_cuda,
+                               segsum.table_lookup_reference, card)
+            row9 = timed_row(torch, "table_lookup", row9,
+                             seen["table_lookup"], kernels.table_lookup_cuda,
+                             "multigrid heal=False", card)
+            launched_false = launched
+    return rec, row, row9, launched_false
 
 
 def normals_window_phase(torch, np, hooks, card):
@@ -1344,7 +1491,8 @@ SHARDED_NAMES = {1: ("default",), 2: ("default", "mxu")}
 # the kernels each sharded run must launch on every rank
 SHARDED_KERNELS = {
     "default": ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
-                "payload_moment_sums", "table_lookup", "plane_adopt"),
+                "payload_moment_sums", "table_lookup_pair", "plane_adopt",
+                "segment_sums"),
 }
 SHARDED_KERNELS["mxu"] = ("stats_mxu", "seed_mxu") + SHARDED_KERNELS[
     "default"][2:]
@@ -1428,6 +1576,9 @@ def sharded_rank(group, pos_np, mask_np, names, card):
                         torch, kname,
                         f"sharded {name}, world {group.world} rank {r}",
                         calls, cuda_fns[kname], hooks[kname][2], card)
+                out[name]["segment_sums_pass"] = segment_sums_record(
+                    torch, f"sharded {name}, world {group.world} rank {r}",
+                    seen["segment_sums"], card)
         group.barrier()
     return out, rows
 
@@ -1517,6 +1668,7 @@ def sharded_phase(torch, np, card):
                     "collectives": col,
                     "halo_bytes_per_sweep": col["halo_bytes"] / sweeps,
                     "halo_messages_per_sweep": col["halo_messages"] / sweeps,
+                    "segment_sums_pass": got["segment_sums_pass"],
                     "kernels": {k: {f: row[f] for f in (
                         "rows", "ms", "plain_ms", "bound_ms", "max_abs_err")}
                         for (nm, k), row in rows.items() if nm == name},
@@ -1545,7 +1697,9 @@ def sharded_phase(torch, np, card):
 
 def kernel_hooks():
     """(the module attribute each solver calls for each kernel wrapper and
-    the kernel's plain version, each kernel's CUDA wrapper)."""
+    the kernel's plain version, each kernel's CUDA wrapper).  The segment
+    sums have six callers in two modules: their hook is the CUDA wrapper
+    itself, which ``ops.segsum.segment_sums`` calls for card tensors."""
     from buildingsegment_tpu_torch import kernels
     from buildingsegment_tpu_torch.ops import (
         adopt, compact_sweep, pallas_knn, segsum, stats_mxu, stats_sweep,
@@ -1569,6 +1723,10 @@ def kernel_hooks():
                                 segsum.payload_moment_sums_reference),
         "table_lookup": (coarse, "table_lookup",
                          segsum.table_lookup_reference),
+        "table_lookup_pair": (coarse, "table_lookup_pair",
+                              segsum.table_lookup_pair_reference),
+        "segment_sums": (kernels, "segment_sums_cuda",
+                         segsum.segment_sums_reference),
         "plane_adopt": (coarse, "plane_adopt", adopt.plane_adopt_reference),
         "knn_exact": (pallas_knn, "knn_exact",
                       pallas_knn.knn_exact_reference),
@@ -1592,6 +1750,8 @@ def kernel_hooks():
         "stats_mxu": kernels.stats_mxu_cuda,
         "seed_mxu": kernels.seed_mxu_cuda,
         "table_lookup_cols": kernels.table_lookup_cols_cuda,
+        "table_lookup_pair": kernels.table_lookup_pair_cuda,
+        "segment_sums": kernels.segment_sums_cuda,
     }
     return hooks, cuda_fns
 
@@ -1667,7 +1827,7 @@ def main():
         # bit for bit; the first call at the largest row count is timed.
         # #10 has no caller: its inputs come from the default path's lookups
         cols_calls = lookup_cols_calls(
-            torch, captured["default"]["table_lookup"], 0)
+            torch, captured["default"]["table_lookup_pair"], 0)
         results = {}
         phases = {"slice_default": compact_phases(
             torch, captured["default"]["compact_sweep"], card,
@@ -1683,12 +1843,30 @@ def main():
         mxu_pairs = {name: block_vs_exact(torch, name, captured["mxu"][name],
                                           cuda_fns, card, "mxu path")
                      for name in MXU_REPLACES}
-        # #9 beside the launch floor: its card ms at the default path's
-        # largest call and an empty kernel's (a one-element add_), both
-        # from the profiler in this call
-        timed_row(torch, "table_lookup", results[("default", "table_lookup")],
-                  captured["default"]["table_lookup"],
-                  cuda_fns["table_lookup"], "default path", card)
+        # the segment sums beside the accumulating index_put_ they
+        # replace, over each path's calls
+        seg_passes = {path: segment_sums_record(
+            torch, f"{path} path", captured[path]["segment_sums"], card)
+            for path in ("default", "single_level", "pallas", "mxu")}
+        for path in ("default", "pallas"):
+            timed_row(torch, "segment_sums", results[(path, "segment_sums")],
+                      captured[path]["segment_sums"],
+                      cuda_fns["segment_sums"], f"{path} path", card)
+        # #9's pair lookup beside the launch floor: its card ms at the
+        # default path's largest call and an empty kernel's (a one-element
+        # add_), both from the profiler in this call
+        timed_row(torch, "table_lookup_pair",
+                  results[("default", "table_lookup_pair")],
+                  captured["default"]["table_lookup_pair"],
+                  cuda_fns["table_lookup_pair"], "default path", card)
+        # #10 on the slice's lookup inputs (no path calls it)
+        results[("default", "table_lookup_cols")] = timed_row(
+            torch, "table_lookup_cols", hold_kernel(
+                torch, "table_lookup_cols", "default lookups' inputs",
+                cols_calls, cuda_fns["table_lookup_cols"],
+                segsum.table_lookup_cols_reference, card),
+            cols_calls, cuda_fns["table_lookup_cols"],
+            "default lookups' inputs", card)
         one = torch.zeros(1, device="cuda")
         floor_ms = card_ms(torch, lambda: one.add_(1.0))
         print(f"launch floor: an empty kernel (one-element add_) card ms "
@@ -1732,6 +1910,10 @@ def main():
                      f"{bij:.6f}; expected {planes} at >= {least}")
             if path == "default":
                 default_labels = out.plane_idx
+                # every finalize adopts holes: the pair lookup renumbers
+                if launches[path]["table_lookup"]:
+                    fail(f"default path launched table_lookup "
+                         f"{launches[path]['table_lookup']} times")
             extra = {}
             if path == "mxu":
                 for exact in MXU_REPLACES.values():
@@ -1772,9 +1954,22 @@ def main():
             fail(f"auto resolved to {method!r} at {len(apts)} points")
         asrc = os.path.join(tmp, "auto.ply")
         write_ply(HostPointCloud(positions=apts), asrc, position_scale=0.001)
+        # the graph solve's sums: every call held and timed
+        seen = {}
+        with spying(torch, {"segment_sums": hooks["segment_sums"]}, seen):
+            segment_file(asrc, dst, DEFAULT_CONFIG, device="cuda")
+        if "segment_sums" not in seen:
+            fail("auto (brute) path did not reach segment_sums")
+        results[("auto", "segment_sums")] = hold_kernel(
+            torch, "segment_sums", "auto (brute)", seen["segment_sums"],
+            cuda_fns["segment_sums"], hooks["segment_sums"][2], card)
+        seg_passes["auto"] = segment_sums_record(
+            torch, "auto (brute) path", seen.pop("segment_sums"), card)
         kernels.reset_launch_counts()
         out = segment_file(asrc, dst, DEFAULT_CONFIG, device="cuda")
         launches["auto"] = dict(kernels.launch_counts)
+        if not launches["auto"]["segment_sums"]:
+            fail("auto (brute) path never launched segment_sums")
         check_output_ply(np, read_ply, dst, out, len(apts))
         bij = bij_agreement(atruth, out.plane_idx)
         planes, least = EXPECT["auto"]
@@ -1814,7 +2009,9 @@ def main():
 
         # 13. the multigrid heal switch; 15. the CLI's --trace,
         # --dump-stages, --golden; 16. the native codec
-        heal, heal_row = heal_phase(torch, np, card, src, dst, pts, truth)
+        heal, heal_row, lookup_row, launches["heal_false"] = heal_phase(
+            torch, np, card, src, dst, pts, truth)
+        results[("heal_false", "table_lookup")] = lookup_row
         small_src = os.path.join(tmp, "small.ply")
         write_ply(HostPointCloud(positions=spts), small_src,
                   position_scale=0.001)
@@ -1879,9 +2076,12 @@ def main():
     # 10. BASELINE config 5: the multi-scan render path at full size
     multiscan, labels0 = multiscan_phase(torch, np, hooks, cuda_fns, card,
                                          results, launches, cols_calls)
-    results[("render", "table_lookup_cols")] = hold_kernel(
-        torch, "table_lookup_cols", "render", cols_calls,
-        kernels.table_lookup_cols_cuda, segsum.table_lookup_cols_reference,
+    results[("render", "table_lookup_cols")] = timed_row(
+        torch, "table_lookup_cols", hold_kernel(
+            torch, "table_lookup_cols", "render", cols_calls,
+            kernels.table_lookup_cols_cuda,
+            segsum.table_lookup_cols_reference, card),
+        cols_calls, kernels.table_lookup_cols_cuda, "render lookups' inputs",
         card)
     del cols_calls
     if any(c["table_lookup_cols"] for c in launches.values()):
@@ -1931,6 +2131,7 @@ def main():
                       "normals_window": normals_window,
                       "stats_sweep_normals_window": normals_row,
                       "native_codec": native, "sharded": sharded,
+                      "segment_sums_passes": seg_passes,
                       "launch_floor_card_ms": floor_ms}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():
@@ -1938,7 +2139,7 @@ def main():
         r = results[(path, name)]
         rows.append({
             "name": name, "route": "cuda", "source": f"{SRC}/{src_file}",
-            "replaces": f"{JAX_OPS}/{replaces}",
+            "replaces": f"{JAX_PKG}/{replaces}",
             "launches": launches[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

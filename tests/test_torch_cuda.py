@@ -33,7 +33,9 @@ from buildingsegment_tpu_torch.ops.pallas_knn import (
 from buildingsegment_tpu_torch.ops.segsum import (
     payload_moment_sums_reference,
     plane_sums_reference,
+    segment_sums_reference,
     table_lookup_cols_reference,
+    table_lookup_pair_reference,
     table_lookup_reference,
 )
 from buildingsegment_tpu_torch.ops.stats_mxu import (
@@ -294,10 +296,11 @@ def test_kernel_wrappers_reject_bad_inputs(scene):
                                  edge_gate2=1.0, inf_label=n)
 
 
-_SLICE1 = ("label_sweep", "compact_sweep")
-_PALLAS = ("knn_exact",)
+_SLICE1 = ("label_sweep", "compact_sweep", "segment_sums")
+_PALLAS = ("knn_exact", "segment_sums")
 _MULTIGRID = ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
-              "payload_moment_sums", "table_lookup", "plane_adopt")
+              "payload_moment_sums", "table_lookup_pair", "plane_adopt",
+              "segment_sums")
 _MXU = ("stats_mxu", "seed_mxu") + _MULTIGRID[2:]
 
 
@@ -309,7 +312,7 @@ _MXU = ("stats_mxu", "seed_mxu") + _MULTIGRID[2:]
         (PipelineConfig(knn_method="window"), _MULTIGRID),
         (PipelineConfig(knn_method="window", stats_rank_mode="mxu",
                         seg_seed_mode="mxu"), _MXU),
-        (PipelineConfig(knn_method="brute"), ()),
+        (PipelineConfig(knn_method="brute"), ("segment_sums",)),
         (PipelineConfig(knn_method="pallas"), _PALLAS),
     ],
     ids=["single_level", "default_multigrid", "mxu", "brute", "pallas"],
@@ -776,6 +779,131 @@ def test_table_lookup_kernel_matches_plain(cuda):
         got = kernels.table_lookup_cuda(ids.to(cuda), lut.to(cuda), n_live)
         ref = table_lookup_reference(ids, lut, n_live)
         assert torch.equal(got.cpu(), ref)
+
+
+def test_table_lookup_pair_kernel_matches_plain(cuda):
+    """The pair lookup (#9 redesigned) against two plain lookups added:
+    disjoint supports as in the finalize, ids below 0, above the live
+    bound and above the tables; tables staged in shared memory (up to
+    4,097 rows each) and past the stage (read from device memory)."""
+    g = torch.Generator(device="cpu").manual_seed(18)
+    n = 300_001
+    member = torch.rand(n, generator=g) < 0.7
+    ids_a = torch.where(member, torch.randint(-3, 9000, (n,), generator=g),
+                        0).int()
+    ids_b = torch.where(~member, torch.randint(-3, 9000, (n,), generator=g),
+                        0).int()
+    for cap, n_live in ((600, 130), (4097, 4096), (4097, 300),
+                        (8200, 8199)):
+        lut_a = torch.randint(0, 500, (cap,), generator=g, dtype=torch.int32)
+        lut_b = torch.randint(0, 500, (cap - 1,), generator=g,
+                              dtype=torch.int32)
+        args = [t.to(cuda) for t in (ids_a, lut_a, ids_b, lut_b)]
+        before = kernels.launch_counts["table_lookup_pair"]
+        got = kernels.table_lookup_pair_cuda(*args, n_live)
+        assert kernels.launch_counts["table_lookup_pair"] == before + 1
+        assert torch.equal(got, table_lookup_pair_reference(*args, n_live))
+        ref = table_lookup_pair_reference(ids_a, lut_a, ids_b, lut_b, n_live)
+        assert torch.equal(got.cpu(), ref)
+
+
+def _segment_case(case, m, size, cols, seed):
+    """(ids int64, rows, init) of a segment-sum card case: scattered ids,
+    long runs (one id over most rows, one over a contiguous 50,000), or
+    ids up to 3,000,000; a tenth dead (negative, at or above the table)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ids = torch.randint(0, size, (m,), generator=g)
+    if case == "long_runs":
+        ids[torch.rand(m, generator=g) < 0.6] = 3
+        ids[m // 3:m // 3 + 50_000] = size - 1
+    dead = torch.rand(m, generator=g) < 0.1
+    ids[dead] = torch.tensor([-1, size, size + 5])[
+        torch.randint(0, 3, (int(dead.sum()),), generator=g)]
+    rows = torch.randn((m, cols), generator=g) * 1e3
+    init = torch.randn((size, cols), generator=g)
+    return ids, rows, init
+
+
+def _hold_segment_sums(cuda, ids, rows, size, init=None):
+    """The kernel against its plain version on the card and on the CPU,
+    bit for bit; one launch a call."""
+    dev = [t.to(cuda) if t is not None else None for t in (ids, rows, init)]
+    before = kernels.launch_counts["segment_sums"]
+    got = kernels.segment_sums_cuda(dev[0], dev[1], size, dev[2])
+    assert kernels.launch_counts["segment_sums"] == before + 1
+    on_card = segment_sums_reference(*dev[:2], size, dev[2])
+    on_cpu = segment_sums_reference(ids, rows, size, init)
+    assert torch.equal(got.view(torch.int32), on_card.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32),
+                       on_cpu.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("case", ["scattered", "long_runs"])
+@pytest.mark.parametrize("cols", [1, 2, 3, 8, 13, 16])
+def test_segment_sums_kernel_matches_plain(cuda, case, cols):
+    """The segment sums against their plain version, bit for bit: C = 1,
+    2, 3, 8, 13 and 16; short runs (many ids a warp) and long ones (listed
+    for the shared-memory fold, their rows starting at every offset from
+    a 16-byte boundary); with ``init``, with ids outside the table (a
+    table cut below the top ids, whose rows then add nothing), and int32
+    ids."""
+    m, size = 200_000, 30_000
+    ids, rows, init = _segment_case(case, m, size, cols, cols)
+    _hold_segment_sums(cuda, ids, rows, size)
+    _hold_segment_sums(cuda, ids, rows, size, init)
+    got = _hold_segment_sums(cuda, ids.int(), rows, size - 7,
+                             init[:size - 7])
+    assert torch.equal(got.cpu(), segment_sums_reference(
+        ids[ids < size - 7], rows[ids < size - 7], size - 7,
+        init[:size - 7]))
+
+
+def test_segment_sums_kernel_one_long_run(cuda):
+    """One run of 500,000 rows (a stage-by-stage fold from shared memory)
+    beside a few short ones."""
+    m = 500_010
+    ids = torch.zeros(m, dtype=torch.int64)
+    ids[:10] = torch.arange(1, 11)
+    g = torch.Generator(device="cpu").manual_seed(500)
+    for cols in (1, 16):
+        rows = torch.randn((m, cols), generator=g)
+        _hold_segment_sums(cuda, ids, rows, 12)
+
+
+def test_segment_sums_kernel_large_ids(cuda):
+    """Ids up to 3,000,000 (above 2^21: no id limit below the table),
+    few rows each."""
+    size = 3_000_001
+    ids, rows, init = _segment_case("scattered", 100_000, size, 8, 3)
+    ids[:1000] = size - 1
+    got = _hold_segment_sums(cuda, ids, rows, size, init)
+    assert got[size - 1].abs().sum() > 0
+
+
+def test_segment_sums_kernel_edge_cases(cuda):
+    """M = 0, every row dead, size 1, rows of −0 (the fold starts from
+    +0), and the named errors."""
+    empty = torch.zeros(0, dtype=torch.int64)
+    for init in (None, torch.full((4, 2), -0.0)):
+        got = _hold_segment_sums(cuda, empty, torch.zeros((0, 2)), 4, init)
+        assert not got.view(torch.int32).any()
+        _hold_segment_sums(cuda, torch.tensor([4, -1, 9]), torch.ones((3, 2)),
+                           4, init)
+        got = _hold_segment_sums(cuda, torch.tensor([0, 0, 2]),
+                                 torch.full((3, 2), -0.0), 4, init)
+        assert not got.view(torch.int32).any()
+    got = _hold_segment_sums(cuda, torch.tensor([0, 0, 1]),
+                             torch.tensor([[1.0], [2.0], [4.0]]), 1)
+    assert got.tolist() == [[3.0]]
+    ids = torch.zeros(5, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.segment_sums_cuda(ids, torch.zeros((5, 17), device=cuda), 3)
+    with pytest.raises(ValueError):
+        kernels.segment_sums_cuda(ids.float(), torch.zeros((5, 2),
+                                                           device=cuda), 3)
+    with pytest.raises(ValueError):
+        kernels.segment_sums_cuda(ids, torch.zeros((5, 2), device=cuda), 0)
 
 
 @pytest.mark.parametrize("cols", [1, 2, 3, 8, 17, 128])
