@@ -25,13 +25,10 @@
 // load an add, and walked the dump id of every unlabeled row too.
 //
 // Design: the parallelism comes from around the chains.
-//   keys: key[i] = idx[i] where 0 <= idx[i] < size, else size; the
-//     wrapper orders the keys stably (torch.sort, stable), which lists
-//     each id's rows contiguously and in row order, the dead rows last;
-//   gather: one thread an element copies the live rows into sorted order
-//     (coalesced writes), and each run's first and last element record
-//     the run's bounds [start[id], end[id]) (zeroed beforehand: an id
-//     with no rows keeps an empty run);
+//   order (segment_sort.cu): a stable sort of the live rows by id, over
+//     only the bits the ids need, writes each live row's columns to its
+//     slot in that order (coalesced writes) and each id's run [start,
+//     end) of slots ([-1, -1) for an id without rows);
 //   fold: G lanes an id (G the power of two >= C: 16 ids a warp at
 //     C = 1, two at C = 16), lane c folds column c over the run's
 //     contiguous rows, its loads issued eight ahead of the adds
@@ -43,11 +40,16 @@
 //     from shared memory, 16 loads ahead of the adds, at a stride fixed
 //     at compile time (one instantiation a width), so the add chain
 //     waits on no global load and issues little besides its adds.
+// Launches a call: the order's memset, histogram and passes (two for ids
+// from 2,049 to 2^22), the fold and, past kLongRun rows, fold_long.  The
+// long-run count stays on the card; no launch sets an attribute
+// (bst_segment_init does, once a device).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_fold.cuh"
 #include "cp_async.cuh"
+#include "segment_sort.cuh"
 
 namespace {
 
@@ -57,35 +59,6 @@ constexpr int kLongThreads = 128;  // a fold_long block
 constexpr int kStageFloats = 8192; // a stage's rows: 32 KB
 constexpr int kStageSpan = kStageFloats + 4;  // its 16-byte aligned span
 constexpr int kLongBlocks = 396;   // fold_long's grid at most: 3 an SM
-
-__global__ void segsum_keys_kernel(const int64_t* __restrict__ idx, int m,
-                                   int size, int* __restrict__ key) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int64_t v = idx[i];
-  key[i] = (v >= 0 && v < size) ? static_cast<int>(v) : size;
-}
-
-__global__ void segsum_gather_kernel(const int* __restrict__ key,
-                                     const int64_t* __restrict__ perm,
-                                     const float* __restrict__ rows,
-                                     int cols, int m, int size,
-                                     float* __restrict__ staged,
-                                     int* __restrict__ start,
-                                     int* __restrict__ end) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (e >= static_cast<int64_t>(m) * cols) return;
-  const int j = static_cast<int>(e / cols);
-  const int c = static_cast<int>(e - static_cast<int64_t>(j) * cols);
-  const int k = key[j];
-  if (k >= size) return;  // a dead row (they sort last)
-  staged[e] = rows[perm[j] * cols + c];
-  if (c == 0) {
-    if (j == 0 || key[j - 1] != k) start[k] = j;
-    if (j == m - 1 || key[j + 1] != k) end[k] = j + 1;
-  }
-}
 
 // G lanes an id s < size: lane c < cols folds column c of the run, or
 // lists the run for fold_long when it is longer than kLongRun.
@@ -219,16 +192,22 @@ segsum_fold_long_kernel(const int* __restrict__ long_ids,
   }
 }
 
+constexpr int kLongSmem = 2 * kStageSpan * static_cast<int>(sizeof(float));
+
 template <int C>
 int launch_fold_long(const int* long_ids, const int* n_long, const int* start,
                      const int* end, const float* staged, const float* init,
                      float* out, int blocks, cudaStream_t stream) {
-  const int smem = 2 * kStageSpan * static_cast<int>(sizeof(float));
-  cudaFuncSetAttribute(segsum_fold_long_kernel<C>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  segsum_fold_long_kernel<C><<<blocks, kLongThreads, smem, stream>>>(
+  segsum_fold_long_kernel<C><<<blocks, kLongThreads, kLongSmem, stream>>>(
       long_ids, n_long, start, end, staged, init, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int allow_fold_long() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      segsum_fold_long_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kLongSmem));
 }
 
 using LongLaunch = int (*)(const int*, const int*, const int*, const int*,
@@ -241,6 +220,37 @@ constexpr LongLaunch kLongLaunch[kMaxCols] = {
     launch_fold_long<10>, launch_fold_long<11>, launch_fold_long<12>,
     launch_fold_long<13>, launch_fold_long<14>, launch_fold_long<15>,
     launch_fold_long<16>};
+constexpr int (*kAllowLong[kMaxCols])() = {
+    allow_fold_long<1>,  allow_fold_long<2>,  allow_fold_long<3>,
+    allow_fold_long<4>,  allow_fold_long<5>,  allow_fold_long<6>,
+    allow_fold_long<7>,  allow_fold_long<8>,  allow_fold_long<9>,
+    allow_fold_long<10>, allow_fold_long<11>, allow_fold_long<12>,
+    allow_fold_long<13>, allow_fold_long<14>, allow_fold_long<15>,
+    allow_fold_long<16>};
+
+// The sums' part of the scratch, after the order's: runs, the long-run
+// count, the listed runs and the staged rows (4 floats of slack: the
+// long-run fold copies 16-byte aligned spans); offsets in bytes.
+struct SumsLayout {
+  size_t runs, n_long, long_ids, staged, total;
+};
+
+size_t align256(size_t n) { return (n + 255) & ~static_cast<size_t>(255); }
+
+SumsLayout sums_layout(int m, int cols, int size) {
+  SumsLayout L;
+  size_t o = 0;
+  L.runs = o;
+  o += align256(2 * static_cast<size_t>(size) * sizeof(int));
+  L.n_long = o;
+  o += 256;
+  L.long_ids = o;
+  o += align256((static_cast<size_t>(m) / (kLongRun + 1) + 1) * sizeof(int));
+  L.staged = o;
+  o += align256((static_cast<size_t>(m) * cols + 4) * sizeof(float));
+  L.total = o;
+  return L;
+}
 
 template <int G>
 int launch_fold(const int* start, const int* end, const float* staged,
@@ -259,46 +269,51 @@ int launch_fold(const int* start, const int* end, const float* staged,
 
 extern "C" {
 
-// idx: i64[m]; key: i32[m] scratch, the live ids (dead rows: size) for
-// the sort.
-int bst_segment_keys(const int64_t* idx, int m, int size, int* key,
-                     void* stream_ptr) {
-  if (m < 0 || size < 1) return cudaErrorInvalidValue;
-  if (m == 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  segsum_keys_kernel<<<static_cast<unsigned>(
-                           (static_cast<int64_t>(m) + threads - 1) / threads),
-                       threads, 0,
-                       static_cast<cudaStream_t>(stream_ptr)>>>(
-      idx, m, size, key);
-  return static_cast<int>(cudaGetLastError());
+// Once a device, before the first call: the long-run fold's and the
+// order's passes' shared-memory limits.
+int bst_segment_init() {
+  for (int c = 0; c < kMaxCols; ++c) {
+    const int err = kAllowLong[c]();
+    if (err != cudaSuccess) return err;
+  }
+  return segsort::init();
 }
 
-// skey / perm: the keys sorted stably and their rows; rows f32[m, cols];
-// staged f32[m * cols + 4] scratch; runs i32[2 * size + 1] zeroed (start,
-// end, then the count of long runs); long_ids i32[m / (kLongRun + 1) + 1]
-// scratch; init f32[size, cols] or null; out f32[size, cols].
-int bst_segment_sums(const int* skey, const int64_t* perm, const float* rows,
+// Bytes of scratch a call takes: the order's, and with cols >= 1 the
+// sums' part (cols = 0: bst_segment_order's); 0 for a digit plan that
+// does not cover the ids or widths outside 1..16.
+size_t bst_segment_scratch(int m, int cols, int size, int passes,
+                           int digit_bits) {
+  const size_t order = segsort::scratch_bytes(m, size, passes, digit_bits);
+  if (order == 0 || cols < 0 || cols > kMaxCols) return 0;
+  return cols == 0 ? order : order + sums_layout(m, cols, size).total;
+}
+
+// idx: m ids, int64 where idx64 else int32; rows f32[m, cols]; init
+// f32[size, cols] or null; out f32[size, cols]; scratch of
+// bst_segment_scratch(m, cols, size, passes, digit_bits) bytes.
+int bst_segment_sums(const void* idx, int idx64, const float* rows,
                      const float* init, int m, int cols, int size,
-                     float* staged, int* runs, int* long_ids, float* out,
-                     void* stream_ptr) {
+                     int passes, int digit_bits, void* scratch,
+                     size_t scratch_size, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (m < 0 || size < 1 || cols < 1 || cols > kMaxCols)
     return cudaErrorInvalidValue;
-  int* start = runs;
-  int* end = runs + size;
-  int* n_long = runs + 2 * static_cast<size_t>(size);
-  const int threads = 256;
-  if (m > 0) {
-    const int64_t total = static_cast<int64_t>(m) * cols;
-    segsum_gather_kernel<<<static_cast<unsigned>((total + threads - 1) /
-                                                 threads),
-                           threads, 0, stream>>>(skey, perm, rows, cols, m,
-                                                 size, staged, start, end);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int err;
+  const size_t order = segsort::scratch_bytes(m, size, passes, digit_bits);
+  const SumsLayout L = sums_layout(m, cols, size);
+  if (order == 0 || scratch == nullptr || scratch_size < order + L.total)
+    return cudaErrorInvalidValue;
+  char* mine = static_cast<char*>(scratch) + order;
+  int* runs = reinterpret_cast<int*>(mine + L.runs);
+  int* n_long = reinterpret_cast<int*>(mine + L.n_long);
+  int* long_ids = reinterpret_cast<int*>(mine + L.long_ids);
+  float* staged = reinterpret_cast<float*>(mine + L.staged);
+  int err = segsort::sort(idx, idx64 != 0, m, size, passes, digit_bits,
+                          scratch, order, runs, rows, cols, staged, nullptr,
+                          n_long, stream);
+  if (err != cudaSuccess) return err;
+  const int* start = runs;
+  const int* end = runs + size;
   if (cols == 1)
     err = launch_fold<1>(start, end, staged, init, out, size, cols,
                          long_ids, n_long, stream);

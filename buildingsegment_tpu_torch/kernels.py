@@ -50,6 +50,8 @@ __all__ = [
     "table_lookup_cols_cuda",
     "table_lookup_pair_cuda",
     "segment_sums_cuda",
+    "segment_order_cuda",
+    "segment_sort_plan",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -58,10 +60,10 @@ _BUILD = os.path.join(_HERE, "_build")
 _SOURCES = (
     "label_sweep.cu", "compact_sweep.cu", "stats_sweep.cu", "seed_sweep.cu",
     "refine_sweep.cu", "segsum.cu", "adopt.cu", "knn_exact.cu",
-    "stats_mxu.cu", "segment_sum.cu",
+    "stats_mxu.cu", "segment_sum.cu", "segment_sort.cu",
 )
 _HEADERS = ("sweep_common.cuh", "block_fold.cuh", "select_rank.cuh",
-            "cp_async.cuh")
+            "cp_async.cuh", "segment_sort.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _NVCC_FLAGS = (
     *_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -73,7 +75,7 @@ launch_counts = {
     "seed_sweep": 0, "refine_sweep": 0, "payload_moment_sums": 0,
     "table_lookup": 0, "plane_adopt": 0, "knn_exact": 0, "plane_sums": 0,
     "stats_mxu": 0, "seed_mxu": 0, "table_lookup_cols": 0,
-    "table_lookup_pair": 0, "segment_sums": 0,
+    "table_lookup_pair": 0, "segment_sums": 0, "segment_order": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -83,6 +85,7 @@ _load_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_Z = ctypes.c_size_t
 
 
 def reset_launch_counts() -> None:
@@ -187,13 +190,18 @@ def _bind() -> None:
     lib.bst_seed_mxu.argtypes = [_P] * 9 + [_I, _I, _F, _F, _I, _P]
     lib.bst_lookup_cols.argtypes = [_P, _P, _I, _I, _P, _I, _P]
     lib.bst_lookup_pair.argtypes = [_P, _P, _I, _P, _P, _I, _P, _I, _P]
-    lib.bst_segment_keys.argtypes = [_P, _I, _I, _P, _P]
-    lib.bst_segment_sums.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 4 + [_P]
+    lib.bst_segment_init.argtypes = []
+    lib.bst_segment_scratch.argtypes = [_I] * 5
+    lib.bst_segment_scratch.restype = _Z
+    lib.bst_segment_sums.argtypes = ([_P, _I, _P, _P] + [_I] * 5
+                                     + [_P, _Z, _P, _P])
+    lib.bst_segment_order.argtypes = [_P] + [_I] * 5 + [_P, _Z, _P, _P, _P]
     for fn in (lib.bst_stats_sweep, lib.bst_seed_sweep, lib.bst_refine_sweep,
                lib.bst_paymom, lib.bst_lookup, lib.bst_adopt,
                lib.bst_knn_exact, lib.bst_plane_sums, lib.bst_stats_mxu,
                lib.bst_seed_mxu, lib.bst_lookup_cols, lib.bst_lookup_pair,
-               lib.bst_segment_keys, lib.bst_segment_sums):
+               lib.bst_segment_init, lib.bst_segment_sums,
+               lib.bst_segment_order):
         fn.restype = _I
     _lib = lib
 
@@ -599,58 +607,102 @@ def table_lookup_pair_cuda(ids_a, lut_a, ids_b, lut_b, n_live):
 #: widest rows the fixed-order segment sums take (kMaxCols in
 #: csrc/segment_sum.cu: a lane a column, at most 16 lanes an id)
 SEGMENT_SUMS_MAX_COLS = 16
-#: runs longer than this fold from shared memory, a block a run
-#: (kLongRun in csrc/segment_sum.cu)
-SEGMENT_SUMS_LONG_RUN = 256
 #: sizes and row counts the segment sums take: int32 positions and ids
 SEGMENT_SUMS_LIMIT = (1 << 31) - 1
+#: widest digit a pass of the segment sums' sort ranks (kMaxDigitBits in
+#: csrc/segment_sort.cuh: 2,048 counters a warp)
+SEGMENT_SORT_MAX_DIGIT = 11
+# devices whose segment kernels have their shared-memory limits set
+_segment_ready = set()
 
 
-def segment_sums_cuda(idx, rows, size, init=None):
-    """CUDA fixed-order per-id sums (csrc/segment_sum.cu): the live keys
-    ordered stably by ``torch.sort``, then gather, fold and long-run fold
-    launched in one call; see
-    :func:`buildingsegment_tpu_torch.ops.segsum.segment_sums`."""
+def segment_sort_plan(size: int):
+    """(key bits, passes, digit bits) of the segment sums' sort for ids in
+    [0, ``size``): the bits the largest id needs, ``bit_length(size −
+    1)``, in the fewest passes of at most :data:`SEGMENT_SORT_MAX_DIGIT`
+    bits, split evenly — one pass up to 2,048 ids, two up to 2^22, three
+    up to 2^31 − 1.  ``size`` = 1 takes one pass of no bits."""
+    bits = (int(size) - 1).bit_length()
+    passes = max(1, -(-bits // SEGMENT_SORT_MAX_DIGIT))
+    return bits, passes, -(-bits // passes)
+
+
+def _segment_lib(idx, size, what):
+    """The library, ready on ``idx``'s device, after the checks both
+    segment wrappers make; returns (lib, idx contiguous, plan)."""
     m = idx.shape[0]
     if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64) \
             or not idx.is_cuda:
-        raise ValueError(f"segment_sums: idx must be a CUDA int32/int64 "
-                         f"[M], got {idx.dtype}{tuple(idx.shape)} on "
-                         f"{idx.device}")
+        raise ValueError(f"{what}: idx must be a CUDA int32/int64 [M], got "
+                         f"{idx.dtype}{tuple(idx.shape)} on {idx.device}")
+    if not (1 <= size < SEGMENT_SUMS_LIMIT and m < SEGMENT_SUMS_LIMIT):
+        raise ValueError(f"{what}: size {size} or {m} rows outside "
+                         f"1 <= size < 2^31 - 1, rows < 2^31 - 1")
+    lib = _load()
+    dev = idx.device
+    with _load_lock:
+        if dev.index not in _segment_ready:
+            with torch.cuda.device(dev):
+                _check(lib, lib.bst_segment_init(), what)
+            _segment_ready.add(dev.index)
+    return lib, idx.contiguous(), segment_sort_plan(size)
+
+
+def segment_sums_cuda(idx, rows, size, init=None):
+    """CUDA fixed-order per-id sums (csrc/segment_sum.cu): the live rows
+    ordered stably by id by the sort of csrc/segment_sort.cu, which
+    writes their columns in that order, then the fold and the long-run
+    fold, all launched in one call on one scratch allocation; see
+    :func:`buildingsegment_tpu_torch.ops.segsum.segment_sums`."""
+    m = idx.shape[0]
     cols = rows.shape[1] if rows.dim() == 2 else 0
     if not 1 <= cols <= SEGMENT_SUMS_MAX_COLS:
         raise ValueError(f"segment_sums: rows must be [M, 1..."
                          f"{SEGMENT_SUMS_MAX_COLS}], got {tuple(rows.shape)}")
-    if not (1 <= size < SEGMENT_SUMS_LIMIT and m < SEGMENT_SUMS_LIMIT):
-        raise ValueError(f"segment_sums: size {size} or {m} rows outside "
-                         f"1 <= size < 2^31 - 1, rows < 2^31 - 1")
+    lib, idx, (_bits, passes, digit) = _segment_lib(idx, size,
+                                                    "segment_sums")
     rows = _cuda_tensor(rows, torch.float32, (m, cols), "rows")
     if init is not None:
         init = _cuda_tensor(init, torch.float32, (size, cols), "init")
-    idx = idx.long().contiguous()
-    dev = rows.device
-    # run bounds (start, end) of every live id, then the long-run count
-    runs = torch.zeros(2 * size + 1, dtype=torch.int32, device=dev)
-    key = torch.empty(m, dtype=torch.int32, device=dev)
-    lib = _load()
-    stream = _stream(rows)
-    _check(lib, lib.bst_segment_keys(idx.data_ptr(), m, size,
-                                     key.data_ptr(), stream), "segment_sums")
-    skey, perm = torch.sort(key, stable=True)
-    # the rows in sorted order, and 4 floats of slack: the long-run fold
-    # copies 16-byte aligned spans
-    staged = torch.empty(m * cols + 4, dtype=torch.float32, device=dev)
-    long_ids = torch.empty(m // (SEGMENT_SUMS_LONG_RUN + 1) + 1,
-                           dtype=torch.int32, device=dev)
+    dev = idx.device
+    if rows.device != dev:
+        raise ValueError(f"segment_sums: idx on {dev}, rows on {rows.device}")
+    nbytes = lib.bst_segment_scratch(m, cols, size, passes, digit)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     out = torch.empty((size, cols), dtype=torch.float32, device=dev)
     err = lib.bst_segment_sums(
-        skey.data_ptr(), perm.data_ptr(), rows.data_ptr(),
-        None if init is None else init.data_ptr(), m, cols, size,
-        staged.data_ptr(), runs.data_ptr(), long_ids.data_ptr(),
-        out.data_ptr(), stream)
+        idx.data_ptr(), idx.dtype == torch.int64, rows.data_ptr(),
+        None if init is None else init.data_ptr(), m, cols, size, passes,
+        digit, scratch.data_ptr(), nbytes, out.data_ptr(), _stream(out))
     _check(lib, err, "segment_sums")
     launch_counts["segment_sums"] += 1
     return out
+
+
+def segment_order_cuda(idx, size):
+    """The segment sums' order alone (csrc/segment_sort.cu): (perm
+    int32[M], start int32[size], end int32[size]).  ``perm[:n]`` lists the
+    n rows whose id lies in [0, ``size``) stably by id (its tail is not
+    written); id s's rows sit at ``perm[start[s]:end[s]]``, and an id
+    without rows has start = end = −1.  No caller on the pipeline: the
+    tests and chip_smoke.py hold it against
+    :func:`buildingsegment_tpu_torch.ops.segsum.segment_order_reference`
+    and time it beside ``torch.sort``."""
+    lib, idx, (_bits, passes, digit) = _segment_lib(idx, size,
+                                                    "segment_order")
+    m = idx.shape[0]
+    dev = idx.device
+    nbytes = lib.bst_segment_scratch(m, 0, size, passes, digit)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    perm = torch.empty(m, dtype=torch.int32, device=dev)
+    runs = torch.empty((2, size), dtype=torch.int32, device=dev)
+    err = lib.bst_segment_order(
+        idx.data_ptr(), idx.dtype == torch.int64, m, size, passes, digit,
+        scratch.data_ptr(), nbytes, perm.data_ptr(), runs.data_ptr(),
+        _stream(perm))
+    _check(lib, err, "segment_order")
+    launch_counts["segment_order"] += 1
+    return perm, runs[0], runs[1]
 
 
 #: widest table the column lookup takes (the TPU kernel's 8 sublanes)

@@ -39,7 +39,7 @@ from buildingsegment_tpu_torch import kernels
 
 __all__ = [
     "row_order_sums",
-    "segment_sums", "segment_sums_reference",
+    "segment_sums", "segment_sums_reference", "segment_order_reference",
     "block_order_sums",
     "plane_payload_moment_sums", "payload_moment_sums_reference",
     "table_lookup", "table_lookup_reference",
@@ -90,6 +90,27 @@ def segment_sums_reference(idx: torch.Tensor, rows: torch.Tensor, size: int,
     live = (idx >= 0) & (idx < size)
     return row_order_sums(idx[live], rows[live], size,
                           None if init is None else init.to(rows.dtype) + 0.0)
+
+
+def segment_order_reference(idx: torch.Tensor, size: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain PyTorch version of the segment sums' order
+    (``kernels.segment_order_cuda``): (perm, start, end), int32.  ``perm``
+    lists the rows whose id lies in [0, ``size``) ordered by (id, row) —
+    ``torch.argsort(stable=True)`` over the live ids — and id s's rows sit
+    at ``perm[start[s]:end[s]]``; an id without rows has start = end =
+    −1."""
+    live = torch.nonzero((idx >= 0) & (idx < size))[:, 0]
+    ids = idx[live].long()
+    order = torch.argsort(ids, stable=True)
+    count = torch.bincount(ids, minlength=size)
+    end = torch.cumsum(count, 0)
+    start = end - count
+    empty = count == 0
+    start[empty] = -1
+    end[empty] = -1
+    return live[order].int(), start.int(), end.int()
 
 
 def segment_sums(idx: torch.Tensor, rows: torch.Tensor, size: int,

@@ -39,10 +39,14 @@ Phases, in order; the first failure exits non-zero:
    card ms by phase (``torch.profiler``, each launch of the sweep) over
    the default path's calls, beside each call's live slot bound; the
    segment sums over one pass of each path's calls, timed beside the
-   accumulating ``index_put_`` they replace and their stable sort alone,
-   with each call's longest live run and the bound (bytes over 3.35
-   TB/s, or the longest run's add chain at 4 cycles an add over the SM
-   clock), and their card and host ms on the default and pallas paths;
+   accumulating ``index_put_`` they replace, with each call's longest
+   live run and the bound (bytes over 3.35 TB/s, or the longest run's add
+   chain at 4 cycles an add over the SM clock), their card ms, host ms
+   and device launches a call; their order alone
+   (``kernels.segment_order_cuda``, the hand-written stable sort of the
+   live ids) held equal to its plain version on every call and timed
+   beside ``torch.sort`` on the same keys and its bytes bound; the sums'
+   card and host ms at the largest call on the default and pallas paths;
 5. small-input check: the window configurations, the ``mxu`` path and
    the exact-kNN methods "brute" and "pallas" on a 9k-point scene on the
    card and on the CPU (plain versions) — same plane count, cross
@@ -429,18 +433,39 @@ def index_put_call(torch, args):
     return run
 
 
+def card_launches(torch, fn, reps=3):
+    """Device activities (kernels, memsets, copies) a call of ``fn`` in a
+    ``torch.profiler`` trace of ``reps`` calls, after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)) / reps
+
+
 def segment_sums_record(torch, where, calls, card, reps=3):
     """The segment sums on one path's captured calls: each call's live
     rows and longest live run; the bounds (bytes over 3.35 TB/s; the
     longest run's add chain at 4 cycles an add over the SM clock) summed
-    over the calls; the kernel, its stable sort alone and the
-    accumulating ``index_put_`` it replaces, each timed over one pass of
-    all the calls (CUDA events).  Printed; returns the record."""
+    over the calls; the order alone (``kernels.segment_order_cuda``) held
+    equal to its plain version on every call; the kernel, the order alone,
+    ``torch.sort`` on the same keys (dead rows keyed ``size``: the
+    library call the order replaces) and the accumulating ``index_put_``
+    the sums replace, each timed over one pass of all the calls (CUDA
+    events); the sums' and the order's card ms a pass (profiler), host ms
+    and device launches a call.  Printed; returns the record."""
     from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.ops.segsum import segment_order_reference
 
     clock = sm_clock_hz()
-    per, keys, lib = [], [], []
-    t_bytes = t_chain = 0.0
+    per, keys, lib, orders = [], [], [], []
+    t_bytes = t_chain = t_order = 0.0
     for n, args, kw in calls:
         out = kernels.segment_sums_cuda(*args, **kw)
         moved, _ops, _note = work(torch, "segment_sums", args, kw, out)
@@ -449,24 +474,60 @@ def segment_sums_record(torch, where, calls, card, reps=3):
         t_bytes += moved / HBM_BYTES_PER_S * 1e3
         t_chain += longest * F32_ADD_CYCLES / clock * 1e3
         idx, _rows, size, _init = args
+        perm, start, end = kernels.segment_order_cuda(idx, size)
+        want = segment_order_reference(idx, size)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((perm[:live], start, end), want)):
+            fail(f"segment order ({where}, {n} rows, size {size}): kernel "
+                 f"!= plain version")
+        # the order's bytes: the ids read once, the live rows' indices
+        # and every id's run bounds written once
+        t_order += (idx.numel() * idx.element_size() + 4 * live
+                    + 8 * size) / HBM_BYTES_PER_S * 1e3
+        orders.append((idx, size))
         keys.append(torch.where((idx >= 0) & (idx < size), idx, size).int())
         lib.append(index_put_call(torch, args))
-    ms = cuda_ms(torch, lambda: [kernels.segment_sums_cuda(*a, **k)
-                                 for _n, a, k in calls], reps)
+
+    def sums_pass():
+        for _n, a, k in calls:
+            kernels.segment_sums_cuda(*a, **k)
+
+    def order_pass():
+        for i, s in orders:
+            kernels.segment_order_cuda(i, s)
+
+    ms = cuda_ms(torch, sums_pass, reps)
+    order_ms = cuda_ms(torch, order_pass, reps)
     sort_ms = cuda_ms(torch, lambda: [torch.sort(k, stable=True)
                                       for k in keys], reps)
     lib_ms = cuda_ms(torch, lambda: [f() for f in lib], reps)
     rec = {"calls": len(calls), "rows_cols_live_longest": per, "ms": ms,
-           "sort_ms": sort_ms, "index_put_ms": lib_ms,
+           "card_ms": card_ms(torch, sums_pass, reps),
+           "host_ms_a_call": host_ms(torch, sums_pass, reps) / len(calls),
+           "launches_a_call": card_launches(torch, sums_pass) / len(calls),
+           "order_ms": order_ms, "order_card_ms": card_ms(torch, order_pass,
+                                                          reps),
+           "order_host_ms_a_call": host_ms(torch, order_pass,
+                                           reps) / len(calls),
+           "order_launches_a_call": card_launches(torch,
+                                                  order_pass) / len(calls),
+           "order_bound_ms": t_order, "sort_ms": sort_ms,
+           "index_put_ms": lib_ms,
            "bytes_bound_ms": t_bytes, "chain_bound_ms": t_chain,
            "bound_ms": max(t_bytes, t_chain), "sm_clock_hz": clock}
     longest = max((p[3] for p in per), default=0)
     print(f"segment_sums ({where}): {len(calls)} calls, rows "
           f"{sorted({p[0] for p in per})}, cols {sorted({p[1] for p in per})}"
-          f", longest live run a call {[p[3] for p in per]}; one pass: "
-          f"kernel {ms:.4f} ms (its stable sort alone {sort_ms:.4f}) vs "
-          f"accumulating index_put_ {lib_ms:.4f} ms; bound "
-          f"{rec['bound_ms']:.6f} ms (bytes {t_bytes:.6f}, chain "
+          f", longest live run a call {[p[3] for p in per]}; the order == "
+          f"plain on each; one pass: kernel {ms:.4f} ms (card "
+          f"{rec['card_ms']}, host {rec['host_ms_a_call']:.4f} a call, "
+          f"{rec['launches_a_call']:.2f} launches a call) vs accumulating "
+          f"index_put_ {lib_ms:.4f} ms; its order alone {order_ms:.4f} ms "
+          f"(card {rec['order_card_ms']}, host "
+          f"{rec['order_host_ms_a_call']:.4f} a call, "
+          f"{rec['order_launches_a_call']:.2f} launches a call, bound "
+          f"{t_order:.6f}) vs torch.sort on the same keys {sort_ms:.4f} ms; "
+          f"bound {rec['bound_ms']:.6f} ms (bytes {t_bytes:.6f}, chain "
           f"{t_chain:.6f}: longest run {longest} x {F32_ADD_CYCLES} cycles "
           f"at {clock / 1e6:.0f} MHz) ({card})")
     return rec

@@ -33,6 +33,7 @@ from buildingsegment_tpu_torch.ops.pallas_knn import (
 from buildingsegment_tpu_torch.ops.segsum import (
     payload_moment_sums_reference,
     plane_sums_reference,
+    segment_order_reference,
     segment_sums_reference,
     table_lookup_cols_reference,
     table_lookup_pair_reference,
@@ -904,6 +905,67 @@ def test_segment_sums_kernel_edge_cases(cuda):
                                                            device=cuda), 3)
     with pytest.raises(ValueError):
         kernels.segment_sums_cuda(ids, torch.zeros((5, 2), device=cuda), 0)
+
+
+def test_segment_sums_kernel_million_row_run(cuda):
+    """One id over 1,048,576 rows (256 tiles of the sort, one run folded
+    stage by stage), int64 and int32 ids, with and without ``init``."""
+    m = 1 << 20
+    g = torch.Generator(device="cpu").manual_seed(1 << 20)
+    rows = torch.randn((m, 3), generator=g)
+    init = torch.randn((9, 3), generator=g)
+    ids = torch.full((m,), 4, dtype=torch.int64)
+    for dtype in (torch.int64, torch.int32):
+        got = _hold_segment_sums(cuda, ids.to(dtype), rows, 9)
+        _hold_segment_sums(cuda, ids.to(dtype), rows, 9, init)
+        assert got[4].abs().sum() > 0 and not got[:4].view(torch.int32).any()
+
+
+def _order_case(case, seed):
+    """(ids int64, size) of a card order case."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if case in ("scattered", "long_runs"):
+        return _segment_case(case, 200_000, 30_000, 1, seed)[0], 30_000
+    if case == "outside":
+        return torch.randint(-50, 2_500, (100_000,), generator=g), 2_049
+    if case == "no_rows":
+        return torch.zeros(0, dtype=torch.int64), 7
+    if case == "all_dead":
+        return torch.tensor([-1, 7, 9, -3] * 3000), 7
+    if case == "one_each":
+        return torch.randperm(300_000, generator=g), 300_000
+    if case == "three_passes":  # ids above 2^22: three digit passes
+        size = (1 << 22) + 1
+        ids = torch.randint(0, size, (50_000,), generator=g)
+        ids[:20_000] = size - 1 - torch.randint(0, 5, (20_000,), generator=g)
+        return ids, size
+    return torch.randint(0, 2_048, (70_000,), generator=g), 2_048  # one pass
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("case", ["scattered", "long_runs", "outside",
+                                  "no_rows", "all_dead", "one_each",
+                                  "three_passes", "one_pass"])
+def test_segment_order_kernel_matches_plain(cuda, case, dtype):
+    """The segment sums' order alone: the kernel's permutation and run
+    bounds ≡ the plain version (on the card and on the CPU) and ≡
+    ``torch.sort(stable=True)`` of the keys (dead rows keyed ``size``,
+    sorted last); one launch a call."""
+    ids, size = _order_case(case, len(case))
+    dev = ids.to(dtype).to(cuda)
+    before = kernels.launch_counts["segment_order"]
+    perm, start, end = kernels.segment_order_cuda(dev, size)
+    assert kernels.launch_counts["segment_order"] == before + 1
+    n = int(((ids >= 0) & (ids < size)).sum())
+    want = segment_order_reference(dev, size)
+    for got, ref in zip((perm[:n], start, end), want):
+        assert got.dtype == torch.int32 and torch.equal(got, ref)
+    cpu = segment_order_reference(ids.to(dtype), size)
+    for got, ref in zip((perm[:n], start, end), cpu):
+        assert torch.equal(got.cpu(), ref)
+    keys = torch.where((dev >= 0) & (dev < size), dev, size)
+    assert torch.equal(perm[:n].long(),
+                       torch.sort(keys, stable=True).indices[:n])
 
 
 @pytest.mark.parametrize("cols", [1, 2, 3, 8, 17, 128])

@@ -1,5 +1,7 @@
-"""The fixed-order per-id sums (``ops.segsum.segment_sums``) and the
-finalize's pair lookup (``ops.segsum.table_lookup_pair``), on the CPU.
+"""The fixed-order per-id sums (``ops.segsum.segment_sums``), their
+order (``ops.segsum.segment_order_reference`` and the digit plan of the
+card's sort, ``kernels.segment_sort_plan``) and the finalize's pair
+lookup (``ops.segsum.table_lookup_pair``), on the CPU.
 
 ``csrc/segment_sum.cu`` must equal ``segment_sums_reference`` bit for
 bit, so the order is pinned here against a numpy float32 oracle: each
@@ -11,7 +13,9 @@ lookup's plain version is held against two calls of the JAX package's
 ``table_lookup`` Pallas kernel in interpret mode, with disjoint
 supports, as the finalize makes them (buildingsegment_tpu/seg/coarse.py
 step 4).  A spy checks that the port's six sum call sites take
-``segment_sums``.
+``segment_sums``.  The order's plain version is held against numpy's
+stable argsort over the live rows, and the plan's digit passes, applied
+one after another as stable sorts (LSD), against the one stable sort.
 """
 
 import sys
@@ -23,8 +27,13 @@ import torch
 
 from buildingsegment_tpu.ops.segsum import table_lookup as jax_lookup
 from buildingsegment_tpu_torch.config import PipelineConfig
+from buildingsegment_tpu_torch.kernels import (
+    SEGMENT_SORT_MAX_DIGIT,
+    segment_sort_plan,
+)
 from buildingsegment_tpu_torch.dist import ShardGroup, sharded_pipeline
 from buildingsegment_tpu_torch.ops.segsum import (
+    segment_order_reference,
     segment_sums,
     segment_sums_reference,
     table_lookup_pair,
@@ -187,6 +196,96 @@ def test_segment_sums_reference_is_the_cpu_path():
     a = segment_sums(torch.from_numpy(ids), rows, 50)
     b = segment_sums_reference(torch.from_numpy(ids).int(), rows, 50)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _order_oracle(idx, size):
+    """(perm, start, end) in numpy: the live rows by numpy's stable
+    argsort, each id's run from its count; [-1, -1) where it has none."""
+    live = np.flatnonzero((idx >= 0) & (idx < size))
+    perm = live[np.argsort(idx[live], kind="stable")]
+    count = np.bincount(idx[live], minlength=size)
+    end = np.cumsum(count)
+    start = end - count
+    start[count == 0] = -1
+    end[count == 0] = -1
+    return perm, start, end
+
+
+def _order_ids(case, rng):
+    """(ids, size) of one order case."""
+    if case in ("scattered", "long_runs"):
+        return _ids(case, 9000, 500, rng), 500
+    if case == "outside":  # a third of the rows below 0 or at/above size
+        return rng.integers(-40, 260, 3000), 211
+    if case == "no_rows":
+        return np.zeros(0, np.int64), 7
+    if case == "all_dead":
+        return rng.choice([-1, -9, 7, 100], 500), 7
+    return np.arange(4000)[::-1].copy(), 4000  # one id for every row
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("case", ["scattered", "long_runs", "outside",
+                                  "no_rows", "all_dead", "one_each"])
+def test_segment_order_reference_matches_numpy(case, dtype):
+    """The order's plain version: the live rows stably by id (numpy's
+    stable argsort), each id's run bounds, [-1, -1) for an id without
+    rows; ids below 0 and at or above ``size`` get no slot; int32 ids
+    give the int64 ids' order."""
+    ids, size = _order_ids(case, np.random.default_rng(len(case)))
+    got = segment_order_reference(torch.from_numpy(ids.astype(dtype)), size)
+    want = _order_oracle(ids, size)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    perm, start, end = (g.numpy() for g in got)
+    for s in np.flatnonzero(start >= 0)[:50]:  # a run holds its id's rows
+        rows = perm[start[s]:end[s]]
+        assert (ids[rows] == s).all() and (np.diff(rows) > 0).all()
+
+
+# size → (key bits, passes, digit bits): around each pass boundary (2^11,
+# 2^22), the tables of the main path (4,096 planes, the default path's
+# deepest level, brute, config 5, the slice) and the largest size
+_PLANS = {
+    1: (0, 1, 0), 2: (1, 1, 1), 3: (2, 1, 2), 1023: (10, 1, 10),
+    1024: (10, 1, 10), 1025: (11, 1, 11), 2047: (11, 1, 11),
+    2048: (11, 1, 11), 2049: (12, 2, 6), 4095: (12, 2, 6),
+    4096: (12, 2, 6), 4097: (13, 2, 7), 13952: (14, 2, 7),
+    61440: (16, 2, 8), 73728: (17, 2, 9), 223232: (18, 2, 9),
+    (1 << 22) - 1: (22, 2, 11), 1 << 22: (22, 2, 11),
+    (1 << 22) + 1: (23, 3, 8), (1 << 31) - 2: (31, 3, 11),
+}
+
+
+@pytest.mark.parametrize("size", sorted(_PLANS))
+def test_segment_sort_plan(size):
+    """The card sort's digit plan: the bits of the largest id, ``size −
+    1``, in the fewest passes of at most 11 bits, split evenly."""
+    bits, passes, digit = segment_sort_plan(size)
+    assert (bits, passes, digit) == _PLANS[size]
+    assert bits == (size - 1).bit_length() and (size - 1) >> bits == 0
+    assert digit <= SEGMENT_SORT_MAX_DIGIT and passes * digit >= bits
+    assert passes == 1 or (passes - 1) * SEGMENT_SORT_MAX_DIGIT < bits
+
+
+@pytest.mark.parametrize("size", [2, 2048, 2049, 13952, 223232,
+                                  (1 << 22) + 1])
+def test_segment_sort_plan_lsd_is_the_stable_order(size):
+    """The plan's digit passes, each a stable sort by its digit from the
+    lowest up (what the card sort's passes compute), give the one stable
+    sort of the live rows: no id bit is left out, at one, two and three
+    passes."""
+    rng = np.random.default_rng(size % 1000)
+    ids = rng.integers(-3, size + 3, 6000)
+    ids[:2000] = rng.integers(0, min(size, 64), 2000)  # many equal ids
+    ids[-1] = size - 1
+    _bits, passes, digit = segment_sort_plan(size)
+    order = np.flatnonzero((ids >= 0) & (ids < size))
+    for p in range(passes):
+        d = (ids[order] >> (p * digit)) & ((1 << digit) - 1)
+        order = order[np.argsort(d, kind="stable")]
+    np.testing.assert_array_equal(order, _order_oracle(ids, size)[0])
 
 
 @pytest.mark.parametrize("n_live", [0, 130, 300, 600])

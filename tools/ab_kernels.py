@@ -4,7 +4,8 @@
 Run on a machine with an NVIDIA card:
 
     python3 tools/ab_kernels.py [--repo DIR] [--label NAME]
-        [--kernels compact_sweep,payload_moment_sums | main | off | all]
+        [--kernels compact_sweep,payload_moment_sums,segment_sums | main
+                   | off | all]
         [--reps 50] [--host-split] [--knn-probe] [--widths]
 
 Imports ``buildingsegment_tpu_torch`` from DIR (default: this
@@ -96,6 +97,11 @@ SPIES = {
                   ("slice_mxu", "config5_scan0_mxu")),
     "seed_mxu": ("seg.region_grow", "seed_sweep_mxu", "seed_mxu_cuda", 2,
                  ("slice_mxu", "config5_scan0_mxu")),
+    # the fixed-order segment sums, spied at their wrapper (every caller
+    # reaches it through ops.segsum.segment_sums)
+    "segment_sums": ("kernels", "segment_sums_cuda", "segment_sums_cuda", 0,
+                     ("slice_default", "slice_single_level", "slice_pallas",
+                      "config5_scan0")),
 }
 #: ``--kernels main``: every kernel of the default path
 MAIN = ("stats_sweep", "seed_sweep", "label_sweep", "compact_sweep",
@@ -414,6 +420,17 @@ def device_ms(torch, profile, activities, fn, a, kw, reps):
     return dev
 
 
+def device_launches(torch, profile, activities, fn, a, kw, reps):
+    """Device activities (kernels, memsets, copies) a call of
+    ``fn(*a, **kw)`` in the profiler, over ``reps`` calls."""
+    with profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn(*a, **kw)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)) / reps
+
+
 def launch_floor_ms(torch, profile, activities, reps):
     """Profiled device ms of a one-element ``add_``: a near-empty kernel."""
     x = torch.zeros(1, device="cuda")
@@ -673,7 +690,10 @@ def main():
                          "ms": start.elapsed_time(end) / args.reps,
                          "host_ms": host * 1e3 / args.reps,
                          "device_ms_total": sum(dev.values()),
-                         "device_ms": dev}
+                         "device_ms": dev,
+                         "launches_a_call": device_launches(
+                             torch, profile, activities, fn, a, kw,
+                             args.reps)}
             # the card time of the first call at each smaller row count
             rec[name]["device_ms_total_by_rows"] = {
                 r: sum(device_ms(torch, profile, activities, fn,

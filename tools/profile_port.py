@@ -18,8 +18,10 @@ render`` profiles ``render_ortho_views`` on the first of them, after one
 ``segment_cloud`` at its capacity.  Prints the card line, then one JSON
 line: the host span per run (each run ends in the labels' or rasters'
 device→host fetch), the device busy time per run (the sum of the device
-time of every kernel, copy and fill), the idle share 1 − busy / span,
-and the kernels by device time (calls and ms per run).  The profiler
+time of every kernel, copy and fill; the stage spans of
+``profiling.annotate``, which the profiler also lists as device ranges,
+are left out and listed apart under ``spans``), the idle share 1 − busy
+/ span, and the kernels by device time (calls and ms per run).  The profiler
 adds host time, so the stage times of ``chip_smoke.py`` are the
 unprofiled figures.  Exits non-zero without a card.
 """
@@ -121,18 +123,7 @@ def main():
             torch.cuda.synchronize()
             span = (time.perf_counter() - t0) / args.runs
 
-    # device-side entries only (kernels, copies, fills): the CPU ops that
-    # launched them report the same time again
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((e.key, e.count, dev_us))
-    rows.sort(key=lambda r: -r[2])
+    rows, spans = device_rows(prof)
     busy = sum(r[2] for r in rows) / 1e3 / args.runs
     print(json.dumps({
         "card": card, "config": args.config, "points": points,
@@ -143,7 +134,35 @@ def main():
              "ms_per_run": us / 1e3 / args.runs}
             for k, c, us in rows[:args.top]
         ],
+        "spans": [
+            {"name": k[:90], "calls_per_run": c / args.runs,
+             "ms_per_run": us / 1e3 / args.runs}
+            for k, c, us in spans
+        ],
     }))
+
+
+def device_rows(prof):
+    """(device work, annotation spans) of a profile, each a list of (name,
+    calls, device us) by device time.  Device work is the kernels, copies
+    and fills, each counted once (the CPU ops that launched them report
+    the same time again).  The spans are the ``record_function`` ranges
+    (``profiling.annotate``'s stages) that the profiler also lists on the
+    device's timeline: each covers the work inside it, so they are kept
+    out of the busy time."""
+    rows, spans = [], []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = e.self_cuda_time_total
+        if dev_us > 0:
+            (spans if e.is_user_annotation else rows).append(
+                (e.key, e.count, dev_us))
+    rows.sort(key=lambda r: -r[2])
+    spans.sort(key=lambda r: -r[2])
+    return rows, spans
 
 
 if __name__ == "__main__":
