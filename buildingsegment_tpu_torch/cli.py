@@ -13,7 +13,7 @@ Usage:
     python -m buildingsegment_tpu_torch.cli -a=scan.ply -s=out.ply \\
         --render-dir renders --extract-contours
     python -m buildingsegment_tpu_torch.cli --batch IN_DIR OUT_DIR \\
-        [--render-dir renders] [--json-summary]
+        [--render-dir renders] [--json-summary] [--trace traces]
     python -m buildingsegment_tpu_torch.cli -a=scan.ply -s=out.ply \\
         --trace traces --dump-stages stages.npz
     python -m buildingsegment_tpu_torch.cli -a=small.ply -s=out.ply --golden
@@ -116,8 +116,9 @@ def parse_args(argv):
     p.add_argument(
         "--trace",
         metavar="DIR",
-        help="write a torch.profiler trace of the run (host spans and the "
-        "card's kernels) to DIR/trace.json (view in Perfetto)",
+        help="write a torch.profiler trace of the run (host spans of every "
+        "thread and the card's kernels) to DIR/trace.json (view in "
+        "Perfetto); with --batch, of the whole batch",
     )
     p.add_argument(
         "--json-summary", action="store_true", help="print a JSON run summary"
@@ -172,6 +173,12 @@ def main(argv=None, *, device="cuda") -> int:
         segment_files,
     )
 
+    trace_cm = contextlib.nullcontext()
+    if args.trace:
+        from buildingsegment_tpu_torch.profiling import trace
+
+        trace_cm = trace(args.trace, device=device)
+
     if args.batch:
         in_dir, out_dir = args.batch
         inputs = sorted(glob.glob(os.path.join(in_dir, "*.ply")))
@@ -180,9 +187,10 @@ def main(argv=None, *, device="cuda") -> int:
             return 1
         os.makedirs(out_dir, exist_ok=True)
         outs = [os.path.join(out_dir, os.path.basename(p)) for p in inputs]
-        results = segment_files(inputs, outs, config, device=device,
-                                signed_normals=args.signed_normals,
-                                render_dir=args.render_dir)
+        with trace_cm:
+            results = segment_files(inputs, outs, config, device=device,
+                                    signed_normals=args.signed_normals,
+                                    render_dir=args.render_dir)
         total_pts = sum(r.cloud.count for r in results)
         rate = total_pts / max(sum(r.timings["total"] for r in results),
                                1e-9) / 1e6
@@ -202,11 +210,6 @@ def main(argv=None, *, device="cuda") -> int:
     if args.golden:
         return _run_golden(input_path, output_path, config, device)
 
-    trace_cm = contextlib.nullcontext()
-    if args.trace:
-        from buildingsegment_tpu_torch.profiling import trace
-
-        trace_cm = trace(args.trace, device=device)
     try:
         with trace_cm:
             out = segment_file(input_path, output_path, config,

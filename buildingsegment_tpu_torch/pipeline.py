@@ -89,7 +89,40 @@ def resolve_knn_method(config: PipelineConfig, capacity: int) -> str:
 
 @dataclasses.dataclass
 class PipelineOutput:
-    """Host-side results of one pipeline run."""
+    """Host-side results of one pipeline run.
+
+    ``timings`` maps each :class:`profiling.annotate` span of the run to
+    its host seconds (a span's name is its key; spans of one name sum):
+
+    * ``read_ply``, ``write_ply`` — the PLY codec (``segment_file``; in
+      ``segment_files`` the reader's read and the writer's write);
+    * ``host_to_device`` — ``segment_cloud``'s ``dedup`` and upload;
+      in ``segment_files`` the reader's whole load
+      (``reader.load_scan``: ``read_ply``, ``dedup`` and the upload);
+    * ``upload.shift`` (host bbox shift), ``upload.copy`` (pad and
+      pageable copy), ``upload.hints`` (``morton_small`` and the spacing
+      hint), ``upload.sync`` (the copy's wait) — the upload's parts;
+    * ``stage1``, ``segmentation``, ``unsort`` — the device stages, each
+      ending in a synchronize; ``knn`` and ``normals`` inside ``stage1``
+      on the exact-kNN paths;
+    * the solve's spans inside ``segmentation``: ``mg.seed``,
+      ``mg.refine``, ``mg.finalize`` (every multigrid level),
+      ``seg.seed``, ``seg.sweep`` (one a sweep), ``seg.sync`` (one a
+      device → host read, as many as ``host_syncs``), ``seg.finish``;
+    * ``device_to_host``, ``colorize`` — the labels' fetch, the colours;
+    * ``segment_files`` only: ``wait.reader`` (the main thread's wait for
+      the scan's load), ``wait.writer`` (its wait for the scan's write at
+      the end of the call), and with ``render_dir`` ``render.dispatch``,
+      ``render.finish`` (fetch and PNGs) and their sum ``render``;
+    * ``total`` — the upload's start (``segment_files``: the device
+      stages' start) to the colours; ``total_with_io`` — ``segment_file``
+      from the read to the write.
+
+    The benchmark (``benchmark/metrics/``) reads ``read_ply``,
+    ``write_ply``, ``host_to_device``, ``upload.copy``, ``upload.sync``,
+    ``upload.hints``, ``stage1``, ``segmentation``, ``seg.sync``,
+    ``wait.reader`` and ``render``, and the ``host_syncs`` counter.
+    """
 
     cloud: HostPointCloud          # shifted positions + label colors
     plane_idx: np.ndarray          # int32[N] (1..P or -1), input order
@@ -98,7 +131,7 @@ class PipelineOutput:
     plane_centers: np.ndarray      # float32[P, 3]
     plane_counts: np.ndarray       # int32[P]
     bbox_min: np.ndarray           # int32[3] original-cloud bbox min
-    timings: dict                  # stage → seconds
+    timings: dict                  # span name → seconds (see above)
     num_sweeps: int = 0
     host_syncs: int = 0
     diagnostics: dict = dataclasses.field(default_factory=dict)
@@ -146,8 +179,9 @@ def run_device_pipeline(
     positions, bbox_min, SegmentationResult with ``plane_idx`` in input
     order).  ``stats_rank_mode`` and ``seg_seed_mode`` ("mxu": the
     block-form stats and fine seed sweeps) apply to the multigrid window
-    path, as in the JAX package.  ``timings``, when given, receives
-    per-stage seconds (each stage ends in a device synchronize).
+    path, as in the JAX package.  ``timings``, when given, receives the
+    stages' spans (``PipelineOutput``); ``stage1``, ``segmentation`` and
+    ``unsort`` each end in a device synchronize.
     """
     timings = {} if timings is None else timings
     if knn_method in ("brute", "pallas"):
@@ -166,8 +200,7 @@ def run_device_pipeline(
         seg_group > 1 and positions.shape[0] % (seg_group ** seg_levels) == 0
     )
     dev = positions.device
-    t0 = time.perf_counter()
-    with annotate("stage1"):
+    with annotate("stage1", timings):
         shifted, lo, _hi = shift_to_origin(positions, mask)
         spos, smask, order = morton_sort(shifted, mask, morton_small)
         if use_stats:
@@ -185,8 +218,6 @@ def run_device_pipeline(
                 max_nn=normal_max_nn,
             )
         synchronize(dev)
-    t1 = time.perf_counter()
-    timings["stage1"] = t1 - t0
 
     # fine-level edge gate: widened past 2·thickness on sparse scans
     # when the density hint is proven
@@ -202,7 +233,7 @@ def run_device_pipeline(
     )
     if seg_anchor_cos is not None:
         seg_kwargs["th_anchor_cos"] = seg_anchor_cos
-    with annotate("segmentation"):
+    with annotate("segmentation", timings):
         if use_stats:
             seg = segment_planes_multigrid(
                 spos, normals, smask, kth_sq_dist=dk, curvature=curv,
@@ -217,13 +248,11 @@ def run_device_pipeline(
                 neigh_sq_dist=neigh_d[:, :knn_k], curvature=curv,
                 **seg_kwargs,
             )
-    t2 = time.perf_counter()
-    timings["segmentation"] = t2 - t1
+        synchronize(dev)
     timings.update(seg.timings)
-    with annotate("unsort"):
+    with annotate("unsort", timings):
         plane_idx = unsort_labels(order, seg.plane_idx)
         synchronize(dev)
-    timings["unsort"] = time.perf_counter() - t2
     return shifted, lo, dataclasses.replace(seg, plane_idx=plane_idx)
 
 
@@ -236,34 +265,31 @@ def _classic_pipeline(
     (k_search wide) → gather normals → graph propagation over the first
     ``knn_k`` slots, all in the input order."""
     dev = positions.device
-    t0 = time.perf_counter()
-    with annotate("knn"):
-        shifted, lo, _hi = shift_to_origin(positions, mask)
-        if knn_method == "pallas":
-            # Morton-sort first so the candidate tiles are spatially
-            # coherent and the box pruning bites; ids map back through
-            # ``order`` and the rows scatter into the input frame
-            order = morton_argsort(shifted, mask)
-            s_idx, s_d = knn_pallas(shifted[order], mask[order], k=k_search)
-            neigh_idx = torch.empty_like(s_idx)
-            neigh_d = torch.empty_like(s_d)
-            neigh_idx[order] = order[s_idx.long()].to(torch.int32)
-            neigh_d[order] = s_d
-        else:
-            neigh_idx, neigh_d = knn(shifted, mask, k=k_search)
-        synchronize(dev)
-    t1 = time.perf_counter()
-    timings["knn"] = t1 - t0
-    with annotate("normals"):
-        normals, curv = estimate_normals(
-            shifted, mask, neigh_idx, neigh_d, radius=normal_radius,
-            max_nn=normal_max_nn,
-        )
-        synchronize(dev)
-    t2 = time.perf_counter()
-    timings["normals"] = t2 - t1
-    timings["stage1"] = t2 - t0
-    with annotate("segmentation"):
+    with annotate("stage1", timings):
+        with annotate("knn", timings):
+            shifted, lo, _hi = shift_to_origin(positions, mask)
+            if knn_method == "pallas":
+                # Morton-sort first so the candidate tiles are spatially
+                # coherent and the box pruning bites; ids map back
+                # through ``order`` and the rows scatter into the input
+                # frame
+                order = morton_argsort(shifted, mask)
+                s_idx, s_d = knn_pallas(shifted[order], mask[order],
+                                        k=k_search)
+                neigh_idx = torch.empty_like(s_idx)
+                neigh_d = torch.empty_like(s_d)
+                neigh_idx[order] = order[s_idx.long()].to(torch.int32)
+                neigh_d[order] = s_d
+            else:
+                neigh_idx, neigh_d = knn(shifted, mask, k=k_search)
+            synchronize(dev)
+        with annotate("normals", timings):
+            normals, curv = estimate_normals(
+                shifted, mask, neigh_idx, neigh_d, radius=normal_radius,
+                max_nn=normal_max_nn,
+            )
+            synchronize(dev)
+    with annotate("segmentation", timings):
         seg = segment_planes(
             shifted, normals, neigh_idx[:, :knn_k], mask, curvature=curv,
             th_seed_curvature=th_seed_curvature, th_thickness=th_thickness,
@@ -272,7 +298,7 @@ def _classic_pipeline(
             convergence_tol=convergence_tol, signed_normals=signed_normals,
             propagation="graph",
         )
-    timings["segmentation"] = time.perf_counter() - t2
+        synchronize(dev)
     timings.update(seg.timings)
     return shifted, lo, seg
 
@@ -283,22 +309,6 @@ def _maybe_dedup(cloud: HostPointCloud, config: PipelineConfig):
         return cloud
     keep = dedup_keep_mask(cloud.positions, config.dedup_bits)
     return cloud if keep.all() else cloud.select(keep)
-
-
-def _prepare_upload(cloud: HostPointCloud, config: PipelineConfig, device):
-    """Host bbox shift + padded upload.  Returns (batch, shifted_host
-    int32[N, 3], lo_host int32[3]); the device shift is then exactly 0
-    per axis, so host and device agree on every coordinate."""
-    n = cloud.count
-    capacity = config.padded_count(n)
-    if n:
-        lo_h = cloud.positions.min(axis=0).astype(np.int32)
-        shifted_h = (cloud.positions - lo_h[None, :]).astype(np.int32)
-    else:
-        lo_h = np.zeros(3, np.int32)
-        shifted_h = np.zeros((0, 3), np.int32)
-    batch = PointBatch.upload(shifted_h, capacity=capacity, device=device)
-    return batch, shifted_h, lo_h
 
 
 def _prove_morton_small(config: PipelineConfig, shifted_h) -> PipelineConfig:
@@ -320,14 +330,29 @@ def _prove_spacing(config: PipelineConfig, shifted_h) -> PipelineConfig:
     return dataclasses.replace(config, spacing_hint_mm=hint)
 
 
-def _upload(cloud: HostPointCloud, config: PipelineConfig, dev):
-    """Host bbox shift, padded upload and the proven hints.  Returns
-    (batch, shifted_host, lo_host, config with the hints); the upload is
-    complete on return."""
-    batch, shifted_h, lo_h = _prepare_upload(cloud, config, dev)
-    config = _prove_morton_small(config, shifted_h)
-    config = _prove_spacing(config, shifted_h)
-    synchronize(dev)
+def _upload(cloud: HostPointCloud, config: PipelineConfig, dev,
+            timings: dict):
+    """Host bbox shift, padded upload and the proven hints, each part a
+    span in ``timings``.  Returns (batch, shifted_host int32[N, 3],
+    lo_host int32[3], config with the hints); the device shift is then
+    exactly 0 per axis, so host and device agree on every coordinate.
+    The upload is complete on return."""
+    n = cloud.count
+    with annotate("upload.shift", timings):
+        if n:
+            lo_h = cloud.positions.min(axis=0).astype(np.int32)
+            shifted_h = (cloud.positions - lo_h[None, :]).astype(np.int32)
+        else:
+            lo_h = np.zeros(3, np.int32)
+            shifted_h = np.zeros((0, 3), np.int32)
+    with annotate("upload.copy", timings):
+        batch = PointBatch.upload(shifted_h, capacity=config.padded_count(n),
+                                  device=dev)
+    with annotate("upload.hints", timings):
+        config = _prove_morton_small(config, shifted_h)
+        config = _prove_spacing(config, shifted_h)
+    with annotate("upload.sync", timings):
+        synchronize(dev)
     return batch, shifted_h, lo_h, config
 
 
@@ -370,19 +395,16 @@ def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, config,
                    timings, t0) -> PipelineOutput:
     """Fetch the labels and the plane table, colorize; ``timings["total"]``
     runs from ``t0``."""
-    t2 = time.perf_counter()
     n = cloud.count
     num_planes = seg.num_planes
-    with annotate("device_to_host"):
+    with annotate("device_to_host", timings):
         plane_idx = seg.plane_idx[:n].cpu().numpy().astype(np.int32)
         p_count = seg.plane_count[:num_planes].cpu().numpy()
         p_normal = seg.plane_normal[:num_planes].cpu().numpy()
         p_center = seg.plane_center[:num_planes].cpu().numpy()
         diag = seg.diagnostics.cpu().numpy()
-    t3 = time.perf_counter()
-    timings["device_to_host"] = t3 - t2
 
-    with annotate("colorize"):
+    with annotate("colorize", timings):
         colors = colorize_planes(
             plane_idx, num_planes, low=config.color_low,
             rng_range=config.color_range,
@@ -396,10 +418,7 @@ def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, config,
         frame_idx=cloud.frame_idx,
         laser_angles=cloud.laser_angles,
     )
-    t4 = time.perf_counter()
-    timings["colorize_host"] = t4 - t3
-    timings["total"] = t4 - t0
-    timings["mpoints_per_sec"] = n / max(timings["total"], 1e-9) / 1e6
+    timings["total"] = time.perf_counter() - t0
     return PipelineOutput(
         cloud=out_cloud,
         plane_idx=plane_idx,
@@ -434,13 +453,11 @@ def segment_cloud(
     dev = torch.device(device)
     t0 = time.perf_counter()
     timings = {}
-    cloud = _maybe_dedup(cloud, config)
-    batch, shifted_h, lo_h, config = _upload(cloud, config, dev)
-    t1 = time.perf_counter()
-    timings["host_to_device"] = t1 - t0
-
+    with annotate("host_to_device", timings):
+        with annotate("dedup", timings):
+            cloud = _maybe_dedup(cloud, config)
+        batch, shifted_h, lo_h, config = _upload(cloud, config, dev, timings)
     shifted, seg = _run_device(batch, config, signed_normals, timings)
-    timings["device_pipeline"] = time.perf_counter() - t1
     return _finish_output(cloud, shifted_h, lo_h, shifted, batch.mask, seg,
                           config, timings, t0)
 
@@ -504,23 +521,23 @@ def segment_file(
     positions × ``position_scale`` (1000 → mm, TMC3.cpp:207), output at
     scale 1.0 / offset 0 as binary (TMC3.cpp:221)."""
     t0 = time.perf_counter()
-    cloud = read_ply(input_path, position_scale=config.position_scale)
-    t_read = time.perf_counter() - t0
+    read = {}
+    with annotate("read_ply", read):
+        cloud = read_ply(input_path, position_scale=config.position_scale)
 
     out = segment_cloud(
         cloud, config, device=device, signed_normals=signed_normals
     )
 
-    t1 = time.perf_counter()
-    write_ply(
-        out.cloud,
-        output_path,
-        position_scale=config.output_scale,
-        position_offset=(0.0, 0.0, 0.0),
-        ascii=not config.output_binary,
-    )
-    out.timings["read_ply"] = t_read
-    out.timings["write_ply"] = time.perf_counter() - t1
+    with annotate("write_ply", out.timings):
+        write_ply(
+            out.cloud,
+            output_path,
+            position_scale=config.output_scale,
+            position_offset=(0.0, 0.0, 0.0),
+            ascii=not config.output_binary,
+        )
+    out.timings.update(read)
     out.timings["total_with_io"] = time.perf_counter() - t0
     return out
 
@@ -565,6 +582,8 @@ def segment_files(
     pipeline, and a writer thread queues scan i's raster, fetches its
     labels, colorizes, writes its PLY and encodes its PNGs while the main
     thread runs scan i+1.  All threads use the device's default stream.
+    Each thread's stages are spans (``PipelineOutput``): the main thread
+    waits inside ``wait.reader`` and ``wait.writer``.
     Returns one :class:`PipelineOutput` per scan, in input order, without
     its device tensors (``device_shifted``/``device_mask`` are None): the
     writer frees them once the scan is written.
@@ -579,14 +598,18 @@ def segment_files(
     def load_scan(path):
         """Reader thread: decode, dedup, bucket, upload, prove the hints.
         ``_upload`` synchronizes, so the batch is on the device before
-        the main thread reads it."""
-        t0 = time.perf_counter()
-        cloud = read_ply(path, position_scale=config.position_scale)
-        cloud = _maybe_dedup(cloud, config)
-        cfg = dataclasses.replace(
-            config, pad_to_multiple=_bucket_capacity(cloud.count, config))
-        batch, shifted_h, lo_h, cfg = _upload(cloud, cfg, dev)
-        return cloud, cfg, batch, shifted_h, lo_h, time.perf_counter() - t0
+        the main thread reads it.  Returns the scan's timings too."""
+        timings = {}
+        with annotate("reader.load_scan", timings):
+            with annotate("read_ply", timings):
+                cloud = read_ply(path, position_scale=config.position_scale)
+            with annotate("dedup", timings):
+                cloud = _maybe_dedup(cloud, config)
+            cfg = dataclasses.replace(
+                config, pad_to_multiple=_bucket_capacity(cloud.count, config))
+            batch, shifted_h, lo_h, cfg = _upload(cloud, cfg, dev, timings)
+        timings["host_to_device"] = timings["reader.load_scan"]
+        return cloud, cfg, batch, shifted_h, lo_h, timings
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as rpool, \
             concurrent.futures.ThreadPoolExecutor(max_workers=1) as wpool:
@@ -594,19 +617,28 @@ def segment_files(
         writes = []
         for i, (in_path, out_path) in enumerate(zip(input_paths,
                                                     output_paths)):
-            cloud, cfg, batch, shifted_h, lo_h, t_load = pending[i].result()
+            waited = {}
+            with annotate("wait.reader", waited):
+                cloud, cfg, batch, shifted_h, lo_h, timings = (
+                    pending[i].result())
+            timings.update(waited)
             pending[i] = None  # the batch lives only as long as its scan
             if i + 2 < len(input_paths):
                 pending.append(rpool.submit(load_scan, input_paths[i + 2]))
             t0 = time.perf_counter()
-            timings = {"host_to_device": t_load}
             shifted, seg = _run_device(batch, cfg, signed_normals, timings)
-            timings["device_pipeline"] = time.perf_counter() - t0
             writes.append(wpool.submit(
                 _write_scan, cloud, shifted_h, lo_h, shifted, batch.mask,
                 seg, cfg, timings, t0, in_path, out_path, render_dir,
             ))
-        return [w.result() for w in writes]
+        outs = []
+        for w in writes:
+            waited = {}
+            with annotate("wait.writer", waited):
+                out = w.result()
+            out.timings.update(waited)
+            outs.append(out)
+        return outs
 
 
 def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, cfg, timings,
@@ -617,20 +649,19 @@ def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, cfg, timings,
     caller's, with the scan's capacity and hints)."""
     rasters = None
     if render_dir is not None:
-        t = time.perf_counter()
-        rasters = dispatch_ortho(shifted_h, shifted, mask, cfg)
-        t_render = time.perf_counter() - t
+        with annotate("render.dispatch", timings):
+            rasters = dispatch_ortho(shifted_h, shifted, mask, cfg)
     out = _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, cfg,
                          timings, t0)
-    t = time.perf_counter()
-    write_ply(out.cloud, out_path, position_scale=cfg.output_scale,
-              ascii=not cfg.output_binary)
-    out.timings["write_ply"] = time.perf_counter() - t
+    with annotate("write_ply", timings):
+        write_ply(out.cloud, out_path, position_scale=cfg.output_scale,
+                  ascii=not cfg.output_binary)
     if rasters is not None:
-        t = time.perf_counter()
-        base = os.path.splitext(os.path.basename(in_path))[0]
-        finish_ortho(rasters, os.path.join(render_dir, base))
-        out.timings["render"] = t_render + time.perf_counter() - t
+        with annotate("render.finish", timings):
+            base = os.path.splitext(os.path.basename(in_path))[0]
+            finish_ortho(rasters, os.path.join(render_dir, base))
+        timings["render"] = (timings["render.dispatch"]
+                             + timings["render.finish"])
     # the raster was their last reader: a batch of thousands of scans
     # would otherwise hold every scan's positions on the device (~15 MB a
     # 1M-point scan) until it ends

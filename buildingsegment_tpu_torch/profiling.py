@@ -1,31 +1,29 @@
 """Tracing and stage timing of the port.
 
-Port of ``buildingsegment_tpu/profiling.py`` on ``torch.profiler``:
+  * :func:`trace` — a profiler trace (host ops of every thread, and the
+    card's kernels when the device is the card) around any block,
+    exported as a Chrome trace (view in Perfetto or chrome://tracing);
+  * :class:`annotate` — the port's one span: a host stage's wall time,
+    added to a timings dict, and, while a profiler runs, a named range in
+    that trace beside the card's kernels, on the profiler's clock.
 
-  * :func:`trace` — a profiler trace (host ops, and the card's kernels
-    when the device is the card) around any block, exported as a Chrome
-    trace (view in Perfetto or chrome://tracing);
-  * :func:`annotate` — a named span in that trace; the pipeline puts one
-    around each stage it times (``stage1``, ``knn``, ``normals``,
-    ``segmentation``, ``unsort``, ``device_to_host``, ``colorize``);
-  * :class:`StageTimer` — wall time by stage, each stop after the
-    device's queued work;
-  * :func:`summarize` — the JSON summary line of the JAX package.
+The pipeline puts an ``annotate`` at each host stage boundary, and the
+span's name is its timings key (``PipelineOutput``'s docstring lists
+them).  A span never synchronizes: where a stage's time must include the
+card's work, the stage ends in an explicit ``synchronize``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
-import time
-from typing import Dict, Optional
+from time import perf_counter as _clock
+from typing import Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-from buildingsegment_tpu_torch.utils.device import synchronize
-
-__all__ = ["trace", "annotate", "StageTimer", "summarize", "TRACE_FILE"]
+__all__ = ["trace", "annotate", "TRACE_FILE"]
 
 #: the Chrome trace :func:`trace` writes into its directory
 TRACE_FILE = "trace.json"
@@ -33,74 +31,55 @@ TRACE_FILE = "trace.json"
 
 @contextlib.contextmanager
 def trace(log_dir: str, *, device="cuda"):
-    """Profile the block and write ``log_dir/trace.json``.  The card's
-    kernels are recorded when ``device`` is a CUDA device."""
+    """Profile the block and write ``log_dir/trace.json``.  The spans of
+    every thread are recorded (``segment_files``' reader and writer too),
+    and the card's kernels when ``device`` is a CUDA device."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
-def annotate(name: str):
-    """A named span in the trace (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+class annotate:
+    """``with annotate(name, timings):`` — a span over the block.
 
+    Its wall time (``perf_counter``) is added to ``timings[name]`` when a
+    dict is given, so repeated spans of one name sum.  While a profiler
+    runs (on any thread) the block is also a
+    ``torch.profiler.record_function(name)`` range; otherwise no range
+    is entered, and a span costs well under a microsecond.  The test is
+    ``torch.autograd.profiler._is_profiler_enabled``, which every profiler
+    setting sets for every thread (``torch.autograd._profiler_enabled()``
+    reads False under ``profile_all_threads``).
+    """
 
-def _devices(obj):
-    """The devices of the tensors in ``obj`` (nested tuples, lists and
-    dicts)."""
-    if isinstance(obj, torch.Tensor):
-        return {obj.device}
-    if isinstance(obj, (tuple, list)):
-        return set().union(*(_devices(x) for x in obj))
-    if isinstance(obj, dict):
-        return _devices(list(obj.values()))
-    return set()
+    __slots__ = ("name", "timings", "_t0", "_range")
 
+    def __init__(self, name: str, timings: Optional[dict] = None):
+        self.name = name
+        self.timings = timings
+        self._range = None
 
-class StageTimer:
-    """Wall-time accumulator keyed by stage name.  A stage given
-    ``block_on`` (tensors) stops its clock after their devices' queued
-    work, so asynchronous launches do not move card time into a later
-    stage."""
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = r = torch.profiler.record_function(self.name)
+            r.__enter__()
+        self._t0 = _clock()
+        return self
 
-    def __init__(self):
-        self.times: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            for dev in _devices(block_on):
-                synchronize(dev)
-            self.times[name] = self.times.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
-
-    def mpoints_per_sec(self, points: int, stage: Optional[str] = None) -> float:
-        total = (
-            self.times.get(stage, 0.0)
-            if stage
-            else sum(self.times.values())
-        )
-        return points / max(total, 1e-9) / 1e6
-
-
-def summarize(timings: Dict[str, float], points: int) -> str:
-    """One-line JSON summary for logs."""
-    return json.dumps(
-        {
-            "points": points,
-            "stages": {k: round(v, 4) for k, v in timings.items()},
-            "mpoints_per_sec": round(
-                points / max(sum(timings.values()), 1e-9) / 1e6, 3
-            ),
-        }
-    )
+    def __exit__(self, exc_type, exc, tb):
+        dt = _clock() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        t = self.timings
+        if t is not None:
+            t[self.name] = t.get(self.name, 0.0) + dt
+        return False

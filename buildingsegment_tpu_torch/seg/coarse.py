@@ -42,7 +42,6 @@ the [P, P] work runs on the same table on every rank.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -61,13 +60,13 @@ from buildingsegment_tpu_torch.ops.window_sweep import (
     halo_columns,
     refine_sweep,
 )
+from buildingsegment_tpu_torch.profiling import annotate
 from buildingsegment_tpu_torch.seg.region_grow import (
     SegmentationResult,
     _shard_kw,
     segment_planes,
     window_seeds,
 )
-from buildingsegment_tpu_torch.utils.device import synchronize
 
 __all__ = ["segment_planes_multigrid", "HEAL_MODES"]
 
@@ -100,13 +99,6 @@ def _outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[A, B] table of a_i · b_j."""
     return (a[:, None, 0] * b[None, :, 0] + a[:, None, 1] * b[None, :, 1]
             + a[:, None, 2] * b[None, :, 2])
-
-
-def _add_timing(timings: dict, key: str, t0: float, dev) -> float:
-    synchronize(dev)
-    t1 = time.perf_counter()
-    timings[key] = timings.get(key, 0.0) + (t1 - t0)
-    return t1
 
 
 def segment_planes_multigrid(
@@ -165,7 +157,6 @@ def segment_planes_multigrid(
     if shard_group is not None and heal is False:
         raise ValueError("sharded multigrid: heal=False has no sharded "
                          "finalize")
-    t_start = time.perf_counter()
     dev = positions.device
     n = positions.shape[0]
     if n % group:
@@ -191,56 +182,56 @@ def segment_planes_multigrid(
     edge2 = float(torch.tensor(edge_mm, dtype=torch.float32) ** 2)
 
     # 1. coarsen
-    gpos_all = pos.reshape(ng, group, 3)
-    gnrm_all = cn.reshape(ng, group, 3)
-    gmask_all = mask.reshape(ng, group)
-    wgt = gmask_all.float()
-    cnt = _group_sum(wgt)
-    safe = torch.clamp_min(cnt, 1.0)[:, None]
-    gpos = _group_sum(gpos_all * wgt[:, :, None]) / safe
-    gsum_n = _group_sum(gnrm_all * wgt[:, :, None])
-    glen = torch.sqrt(torch.clamp_min(_dot3(gsum_n, gsum_n), 1e-20))
-    gnrm = gsum_n / glen[:, None]
-    align = glen / torch.clamp_min(cnt, 1.0)
-    dvec = gpos_all - gpos[:, None, :]
-    plane_d = torch.abs(_dot3(dvec, gnrm[:, None, :]))
-    spread2 = torch.where(gmask_all, _dot3(dvec, dvec), 0.0).amax(dim=1)
-    band = torch.where(gmask_all, plane_d, 0.0).amax(dim=1)
-    coherent = (
-        (cnt >= float(max(2, group // 2)))
-        & (align >= th_normal_cos)
-        & (band <= th_thickness)
-        & (spread2 <= edge2)
-    )
-    gmask = (cnt > 0) & coherent
+    with annotate("mg.seed", timings):
+        gpos_all = pos.reshape(ng, group, 3)
+        gnrm_all = cn.reshape(ng, group, 3)
+        gmask_all = mask.reshape(ng, group)
+        wgt = gmask_all.float()
+        cnt = _group_sum(wgt)
+        safe = torch.clamp_min(cnt, 1.0)[:, None]
+        gpos = _group_sum(gpos_all * wgt[:, :, None]) / safe
+        gsum_n = _group_sum(gnrm_all * wgt[:, :, None])
+        glen = torch.sqrt(torch.clamp_min(_dot3(gsum_n, gsum_n), 1e-20))
+        gnrm = gsum_n / glen[:, None]
+        align = glen / torch.clamp_min(cnt, 1.0)
+        dvec = gpos_all - gpos[:, None, :]
+        plane_d = torch.abs(_dot3(dvec, gnrm[:, None, :]))
+        spread2 = torch.where(gmask_all, _dot3(dvec, dvec), 0.0).amax(dim=1)
+        band = torch.where(gmask_all, plane_d, 0.0).amax(dim=1)
+        coherent = (
+            (cnt >= float(max(2, group // 2)))
+            & (align >= th_normal_cos)
+            & (band <= th_thickness)
+            & (spread2 <= edge2)
+        )
+        gmask = (cnt > 0) & coherent
 
-    # group seeds: the group holds a strict fine-level seed
-    if seed_override is not None:
-        fine_seed = seed_override & mask
-    elif seed_source == "coarse":
-        fine_seed = None
-        gseed = (
-            gmask & (cnt >= float(group))
-            & (align >= max(th_normal_cos, 0.97))
-            & (band <= 0.5 * th_thickness)
-        )
-        if curvature is not None and th_seed_curvature is not None:
-            flat = (curvature <= th_seed_curvature) & mask
-            gseed = gseed & flat.reshape(ng, group).any(dim=1)
-    else:
-        dk = kth_sq_dist
-        if dk is None:
-            dk = torch.full((n,), edge2, dtype=torch.float32, device=dev)
-        fine_seed = window_seeds(
-            pos, nrm, mask, dk, window=window, th_thickness=th_thickness,
-            th_normal_cos=th_normal_cos, signed_normals=signed_normals,
-            seed_mode=seed_mode, group=shard_group,
-        )
-    if fine_seed is not None:
-        if curvature is not None and th_seed_curvature is not None:
-            fine_seed = fine_seed & (curvature <= th_seed_curvature)
-        gseed = fine_seed.reshape(ng, group).any(dim=1) & gmask
-    t = _add_timing(timings, "mg_seed", t_start, dev)
+        # group seeds: the group holds a strict fine-level seed
+        if seed_override is not None:
+            fine_seed = seed_override & mask
+        elif seed_source == "coarse":
+            fine_seed = None
+            gseed = (
+                gmask & (cnt >= float(group))
+                & (align >= max(th_normal_cos, 0.97))
+                & (band <= 0.5 * th_thickness)
+            )
+            if curvature is not None and th_seed_curvature is not None:
+                flat = (curvature <= th_seed_curvature) & mask
+                gseed = gseed & flat.reshape(ng, group).any(dim=1)
+        else:
+            dk = kth_sq_dist
+            if dk is None:
+                dk = torch.full((n,), edge2, dtype=torch.float32, device=dev)
+            fine_seed = window_seeds(
+                pos, nrm, mask, dk, window=window, th_thickness=th_thickness,
+                th_normal_cos=th_normal_cos, signed_normals=signed_normals,
+                seed_mode=seed_mode, group=shard_group,
+            )
+        if fine_seed is not None:
+            if curvature is not None and th_seed_curvature is not None:
+                fine_seed = fine_seed & (curvature <= th_seed_curvature)
+            gseed = fine_seed.reshape(ng, group).any(dim=1) & gmask
 
     # 2. coarse solve: the next level, or the window solver on the
     # group seeds
@@ -267,101 +258,104 @@ def segment_planes_multigrid(
                                 **common)
     for key, val in coarse.timings.items():
         timings[key] = timings.get(key, 0.0) + val
-    t = time.perf_counter()
 
     # 3. refine at full resolution against the coarse plane table
-    pn = coarse.plane_normal
-    pc = coarse.plane_center
-    n_live = coarse.num_planes
-    pid = torch.repeat_interleave(torch.clamp_min(coarse.plane_idx, 0), group)
-    table = torch.stack([pn[:, 0], pn[:, 1], pn[:, 2], _dot3(pn, pc)], 1)
-    pos3 = tuple(pos[:, d].contiguous() for d in range(3))
-    nrm3 = tuple(nrm[:, d].contiguous() for d in range(3))
-    sw_pos, sw_nrm, sw_mask = pos3, nrm3, mask
-    if shard_group is not None:
-        # the fixed columns take their halos once a level, the ids each
-        # sweep
-        sw_pos, sw_nrm, sw_mask = halo_columns(shard_group, window, pos3,
-                                               nrm3, mask)
-    for s in range(max(1, refine_sweeps)):
-        sw_pid = pid if shard_group is None else shard_group.halo_pad(
-            pid, window, fill=0)
-        pid = refine_sweep(
-            sw_pos, sw_nrm, sw_mask, sw_pid, table, n_live, w=window,
-            th_thickness=float(th_thickness),
-            th_normal_cos=float(th_normal_cos), edge_gate2=edge_mm ** 2,
-            signed=signed_normals, clean=(s == 0), adopt=refine_sweeps > 0,
-            **_shard_kw(shard_group),
-        )
-    t = _add_timing(timings, "mg_refine", t, dev)
+    with annotate("mg.refine", timings):
+        pn = coarse.plane_normal
+        pc = coarse.plane_center
+        n_live = coarse.num_planes
+        pid = torch.repeat_interleave(
+            torch.clamp_min(coarse.plane_idx, 0), group)
+        table = torch.stack([pn[:, 0], pn[:, 1], pn[:, 2], _dot3(pn, pc)], 1)
+        pos3 = tuple(pos[:, d].contiguous() for d in range(3))
+        nrm3 = tuple(nrm[:, d].contiguous() for d in range(3))
+        sw_pos, sw_nrm, sw_mask = pos3, nrm3, mask
+        if shard_group is not None:
+            # the fixed columns take their halos once a level, the ids each
+            # sweep
+            sw_pos, sw_nrm, sw_mask = halo_columns(shard_group, window, pos3,
+                                                   nrm3, mask)
+        for s in range(max(1, refine_sweeps)):
+            sw_pid = pid if shard_group is None else shard_group.halo_pad(
+                pid, window, fill=0)
+            pid = refine_sweep(
+                sw_pos, sw_nrm, sw_mask, sw_pid, table, n_live, w=window,
+                th_thickness=float(th_thickness),
+                th_normal_cos=float(th_normal_cos), edge_gate2=edge_mm ** 2,
+                signed=signed_normals, clean=(s == 0), adopt=refine_sweeps > 0,
+                **_shard_kw(shard_group),
+            )
 
     # 4. finalize: payload sums (+ moments about the coarse centers when
     # the merge needs them)
-    sq = pos3[0] * pos3[0] + pos3[1] * pos3[1] + pos3[2] * pos3[2]
-    ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
-    payload = torch.cat([ones, cn, pos, sq[:, None]], 1).contiguous()
-    member = mask & (pid > 0)
-    cap128 = -(-max_planes // 128) * 128
-    old_row = torch.where(member, pid - 1, cap128).to(torch.int32)
-    # only the first L rows can be live (every id ≤ n_live)
-    L = max(min(n_live, max_planes), 1)
-    rows_p = torch.arange(L, dtype=torch.int64, device=dev)
-    if heal:
-        acc_a, acc_mq = _fold(shard_group, lambda init: plane_payload_moment_sums(
-            old_row, payload, pc, n_live, table_cap=max_planes, init=init,
-        ), [(cap128, 8), (cap128, 6)])
-        acc = acc_a[:L]
-        acc_mq = acc_mq[:L]
-    else:
-        acc = plane_sums(old_row, payload, n_live, table_cap=max_planes)[:L]
-    cnt_o = acc[:, 0]
-    live_o = cnt_o > 0
-    if heal:
-        acc_o = acc
-        acc, parent, acc_m, c_t = _merge_coplanar(
-            acc_o, acc_mq, pc[:L], rows_p, cmag, edge_mm=edge_mm,
-            th_thickness=th_thickness, th_normal_cos=th_normal_cos)
-    else:
-        parent = rows_p
-    adopted = adopt_row = None
-    if heal is True:
-        adopted, adopt_row, acc = _adopt_holes(
-            acc, acc_o, acc_m, c_t, parent, payload, mask & (pid == 0),
-            edge_mm=edge_mm, th_thickness=th_thickness,
-            th_normal_cos=th_normal_cos, signed_normals=signed_normals,
-            group=shard_group)
+    with annotate("mg.finalize", timings):
+        sq = pos3[0] * pos3[0] + pos3[1] * pos3[1] + pos3[2] * pos3[2]
+        ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
+        payload = torch.cat([ones, cn, pos, sq[:, None]], 1).contiguous()
+        member = mask & (pid > 0)
+        cap128 = -(-max_planes // 128) * 128
+        old_row = torch.where(member, pid - 1, cap128).to(torch.int32)
+        # only the first L rows can be live (every id ≤ n_live)
+        L = max(min(n_live, max_planes), 1)
+        rows_p = torch.arange(L, dtype=torch.int64, device=dev)
+        if heal:
+            acc_a, acc_mq = _fold(shard_group, lambda init: plane_payload_moment_sums(
+                old_row, payload, pc, n_live, table_cap=max_planes, init=init,
+            ), [(cap128, 8), (cap128, 6)])
+            acc = acc_a[:L]
+            acc_mq = acc_mq[:L]
+        else:
+            acc = plane_sums(old_row, payload, n_live,
+                             table_cap=max_planes)[:L]
+        cnt_o = acc[:, 0]
+        live_o = cnt_o > 0
+        if heal:
+            acc_o = acc
+            acc, parent, acc_m, c_t = _merge_coplanar(
+                acc_o, acc_mq, pc[:L], rows_p, cmag, edge_mm=edge_mm,
+                th_thickness=th_thickness, th_normal_cos=th_normal_cos)
+        else:
+            parent = rows_p
+        adopted = adopt_row = None
+        if heal is True:
+            adopted, adopt_row, acc = _adopt_holes(
+                acc, acc_o, acc_m, c_t, parent, payload, mask & (pid == 0),
+                edge_mm=edge_mm, th_thickness=th_thickness,
+                th_normal_cos=th_normal_cos, signed_normals=signed_normals,
+                group=shard_group)
 
-    # cull (> th_point_count) and renumber by rank of the merged root
-    keep = acc[:, 0].to(torch.int32) > th_point_count
-    rank = prefix_sum_i32(keep.to(torch.int32))
-    zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    lut = torch.cat([zero, torch.where(keep[parent] & live_o, rank[parent],
-                                       0).to(torch.int32)])
-    pid_member = torch.where(member, pid, 0).to(torch.int32)
-    if adopted is None:
-        new_id = table_lookup(pid_member, lut, n_live + 1)
-    else:
-        # disjoint supports: members and adopted holes, one launch
-        lut2 = torch.cat([zero, torch.where(keep, rank, 0).to(torch.int32)])
-        pid_adopt = torch.where(adopted, adopt_row + 1, 0).to(torch.int32)
-        new_id = table_lookup_pair(pid_member, lut, pid_adopt, lut2,
-                                   n_live + 1)
-    plane_idx = torch.where(new_id > 0, new_id, -1).to(torch.int32)
+        # cull (> th_point_count) and renumber by rank of the merged root
+        keep = acc[:, 0].to(torch.int32) > th_point_count
+        rank = prefix_sum_i32(keep.to(torch.int32))
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        lut = torch.cat([zero, torch.where(keep[parent] & live_o, rank[parent],
+                                           0).to(torch.int32)])
+        pid_member = torch.where(member, pid, 0).to(torch.int32)
+        if adopted is None:
+            new_id = table_lookup(pid_member, lut, n_live + 1)
+        else:
+            # disjoint supports: members and adopted holes, one launch
+            lut2 = torch.cat([zero,
+                              torch.where(keep, rank, 0).to(torch.int32)])
+            pid_adopt = torch.where(adopted, adopt_row + 1, 0).to(torch.int32)
+            new_id = table_lookup_pair(pid_member, lut, pid_adopt, lut2,
+                                       n_live + 1)
+        plane_idx = torch.where(new_id > 0, new_id, -1).to(torch.int32)
 
-    # dense table: kept merged-root rows in rank order
-    slot = torch.where(keep, rank - 1, L).long()
-    old_of_new = torch.zeros(L + 1, dtype=torch.int64, device=dev)
-    old_of_new[slot] = rows_p
-    valid_new = (rows_p < rank[L - 1])[:, None]
-    acc_new = torch.zeros((max_planes, 8), dtype=torch.float32, device=dev)
-    acc_new[:L] = torch.where(valid_new, acc[old_of_new[:L]], 0.0)
-    cnt2 = acc_new[:, 0].to(torch.int32)
-    sc = torch.clamp_min(cnt2, 1).float()[:, None]
-    live2 = (cnt2 > 0)[:, None]
-    plane_normal = torch.where(live2, _unit(acc_new[:, 1:4] / sc), 0.0)
-    plane_center = torch.where(live2, acc_new[:, 4:7] / sc, 0.0)
-    num_planes = int(rank[L - 1])
-    _add_timing(timings, "mg_finalize", t, dev)
+        # dense table: kept merged-root rows in rank order
+        slot = torch.where(keep, rank - 1, L).long()
+        old_of_new = torch.zeros(L + 1, dtype=torch.int64, device=dev)
+        old_of_new[slot] = rows_p
+        valid_new = (rows_p < rank[L - 1])[:, None]
+        acc_new = torch.zeros((max_planes, 8), dtype=torch.float32, device=dev)
+        acc_new[:L] = torch.where(valid_new, acc[old_of_new[:L]], 0.0)
+        cnt2 = acc_new[:, 0].to(torch.int32)
+        sc = torch.clamp_min(cnt2, 1).float()[:, None]
+        live2 = (cnt2 > 0)[:, None]
+        plane_normal = torch.where(live2, _unit(acc_new[:, 1:4] / sc), 0.0)
+        plane_center = torch.where(live2, acc_new[:, 4:7] / sc, 0.0)
+        with annotate("seg.sync", timings):
+            num_planes = int(rank[L - 1])
     return SegmentationResult(
         plane_idx=plane_idx,
         num_planes=num_planes,

@@ -48,7 +48,6 @@ and runs at world 1 only.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -64,7 +63,7 @@ from buildingsegment_tpu_torch.ops.window_sweep import (
     label_sweep,
     seed_sweep,
 )
-from buildingsegment_tpu_torch.utils.device import synchronize
+from buildingsegment_tpu_torch.profiling import annotate
 
 __all__ = ["segment_planes", "SegmentationResult", "window_seeds",
            "SEED_MODES"]
@@ -102,8 +101,10 @@ class SegmentationResult:
             beyond the per-sweep merge cap, planes beyond max_planes,
             1 if the solve stopped at max_sweeps unconverged].
         host_syncs: device→host reads the solve made.
-        timings: seconds per phase (seed, warm, compact, finish), each
-            ending in a device synchronize.
+        timings: host seconds by span (``seg.seed``, ``seg.sweep``,
+            ``seg.sync`` — one a read counted in ``host_syncs`` —,
+            ``seg.finish``; the multigrid levels add ``mg.*``), summed
+            over spans of one name.  No span synchronizes.
     """
 
     plane_idx: torch.Tensor
@@ -269,7 +270,6 @@ def segment_planes(
                               or seed_override is None):
         raise ValueError("sharded segment_planes needs propagation='window' "
                          "and seed_override (see window_seeds)")
-    t_start = time.perf_counter()
     dev = positions.device
     n = positions.shape[0]
     pos = positions.float()
@@ -280,92 +280,106 @@ def segment_planes(
     inf = ng
     syncs = 0
     timings = {}
-    cmag = (lambda x: x) if signed_normals else torch.abs
-    sns = nrm if signed_normals else canonicalize_normals(nrm)
-    rows_ng = torch.arange(ng, dtype=torch.int32, device=dev)
-    gid = rows_ng[base:base + n]  # this rank's rows' global ids
 
-    def fold_sums(idx, rows, size):
-        """segment_sums over every rank's rows, in global row order (rows
-        with an id at or above ``size`` add nothing)."""
-        if group is None:
-            return segment_sums(idx, rows, size)
-        return group.fold(lambda init: segment_sums(idx, rows, size, init),
-                          (size, rows.shape[1]))
+    def read(t):
+        """``t.tolist()``: a device → host read of the solve, counted in
+        ``host_syncs`` and timed as a ``seg.sync`` span."""
+        nonlocal syncs
+        syncs += 1
+        with annotate("seg.sync", timings):
+            return t.tolist()
 
-    # the kNN-graph edges i → neigh[i, 1:], gated by validity and (with
-    # distances and a gate) by length
-    graph = propagation == "graph"
-    if graph or seed_override is None:
-        nb = neigh_idx[:, 1:].long()
-        nb_valid = mask[nb] & mask[:, None] & (nb != rows_ng.long()[:, None])
-        if neigh_sq_dist is not None and max_edge_dist is not None:
-            nb_valid = nb_valid & (
-                neigh_sq_dist[:, 1:] <= _f32sq(max_edge_dist))
-        nb_pos, nb_nrm = pos[nb], nrm[nb]
+    with annotate("seg.seed", timings):
+        cmag = (lambda x: x) if signed_normals else torch.abs
+        sns = nrm if signed_normals else canonicalize_normals(nrm)
+        rows_ng = torch.arange(ng, dtype=torch.int32, device=dev)
+        gid = rows_ng[base:base + n]  # this rank's rows' global ids
 
-    # 1. seed gating over the kNN graph (depth-0 rule), or the caller's
-    if seed_override is not None:
-        seed = seed_override & mask
-    else:
-        dist = torch.abs(_sum3((nb_pos - pos[:, None, :]) * nrm[:, None, :]))
-        cos = cmag(_sum3(nb_nrm * nrm[:, None, :]))
-        fwd_ok = (dist <= th_thickness) & (cos >= th_normal_cos) & nb_valid
-        seed = fwd_ok.all(dim=1) & mask
-        del dist, cos, fwd_ok
-    if curvature is not None and th_seed_curvature is not None:
-        seed = seed & (curvature <= th_seed_curvature)
+        def fold_sums(idx, rows, size):
+            """segment_sums over every rank's rows, in global row order (rows
+            with an id at or above ``size`` add nothing)."""
+            if group is None:
+                return segment_sums(idx, rows, size)
+            return group.fold(lambda init: segment_sums(idx, rows, size, init),
+                              (size, rows.shape[1]))
 
-    # anchor table: row r holds the seed normal of label r for the whole
-    # solve (purity gate of the model sums)
-    anchor_gate = th_anchor_cos > th_normal_cos
-    anchor_tab = torch.where(seed[:, None], sns, 0.0) if anchor_gate else None
-    if anchor_gate and group is not None:
-        anchor_tab = group.all_gather(anchor_tab)  # [ng, 3]
+        # the kNN-graph edges i → neigh[i, 1:], gated by validity and (with
+        # distances and a gate) by length
+        graph = propagation == "graph"
+        if graph or seed_override is None:
+            nb = neigh_idx[:, 1:].long()
+            nb_valid = (mask[nb] & mask[:, None]
+                        & (nb != rows_ng.long()[:, None]))
+            if neigh_sq_dist is not None and max_edge_dist is not None:
+                nb_valid = nb_valid & (
+                    neigh_sq_dist[:, 1:] <= _f32sq(max_edge_dist))
+            nb_pos, nb_nrm = pos[nb], nrm[nb]
 
-    def purity(label):
-        if not anchor_gate:
-            return label < inf
-        anc = anchor_tab[label.clamp(0, ng - 1)]
-        agree = cmag(_sum3(sns * anc))
-        return (label < inf) & (agree >= th_anchor_cos)
-
-    ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
-    payload8_sq = torch.cat([ones, sns, pos, _sum3(pos * pos)[:, None]], 1)
-    payload8 = torch.cat([ones, sns, pos, torch.zeros_like(ones)], 1)
-
-    def stats_payload(label, valid, with_sq):
-        """Per-point payload: 8 all-member columns [cnt, Σn̂, Σp, Σ|p|²],
-        plus 8 anchor-pure columns when the anchor gate is on."""
-        base = payload8_sq if with_sq else payload8
-        if anchor_gate:
-            wp = purity(label).float()[:, None]
-            payload = torch.cat([base, base * wp], 1)
+        # 1. seed gating over the kNN graph (depth-0 rule), or the caller's
+        if seed_override is not None:
+            seed = seed_override & mask
         else:
-            payload = base
-        return torch.where(valid[:, None], payload, 0.0)
+            dist = torch.abs(
+                _sum3((nb_pos - pos[:, None, :]) * nrm[:, None, :]))
+            cos = cmag(_sum3(nb_nrm * nrm[:, None, :]))
+            fwd_ok = (dist <= th_thickness) & (cos >= th_normal_cos) & nb_valid
+            seed = fwd_ok.all(dim=1) & mask
+            del dist, cos, fwd_ok
+        if curvature is not None and th_seed_curvature is not None:
+            seed = seed & (curvature <= th_seed_curvature)
 
-    label0 = torch.where(seed, gid, inf)
-    ws = WINDOW
-    # contiguous component columns, made once: the kernels take [n] rows
-    px, py, pz = (pos[:, d].contiguous() for d in range(3))
-    nx_, ny_, nz_ = (nrm[:, d].contiguous() for d in range(3))
-    if group is not None:
-        # the sweep's fixed columns with their ring halos, once a solve
-        halo_pos, halo_nrm, halo_mask = halo_columns(
-            group, ws, (px, py, pz), (nx_, ny_, nz_), mask)
-    edge_gate_val = (
-        max_edge_dist if max_edge_dist is not None else 2 * th_thickness
-    )
-    root_gate = float(np.sqrt(np.float32(edge_gate_val ** 2)))
-    # per-sweep global-merge table capacity (labels beyond it defer
-    # their global merge to a later sweep)
-    L = min(max_planes, ng, 1024)
-    sweep_kw = dict(
-        w=ws, th_thickness=float(th_thickness),
-        th_normal_cos=float(th_normal_cos), edge_gate2=edge_gate_val ** 2,
-        signed=signed_normals,
-    )
+        # anchor table: row r holds the seed normal of label r for the whole
+        # solve (purity gate of the model sums)
+        anchor_gate = th_anchor_cos > th_normal_cos
+        anchor_tab = (torch.where(seed[:, None], sns, 0.0) if anchor_gate
+                      else None)
+        if anchor_gate and group is not None:
+            anchor_tab = group.all_gather(anchor_tab)  # [ng, 3]
+
+        def purity(label):
+            if not anchor_gate:
+                return label < inf
+            anc = anchor_tab[label.clamp(0, ng - 1)]
+            agree = cmag(_sum3(sns * anc))
+            return (label < inf) & (agree >= th_anchor_cos)
+
+        ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
+        payload8_sq = torch.cat([ones, sns, pos, _sum3(pos * pos)[:, None]], 1)
+        payload8 = torch.cat([ones, sns, pos, torch.zeros_like(ones)], 1)
+
+        def stats_payload(label, valid, with_sq):
+            """Per-point payload: 8 all-member columns [cnt, Σn̂, Σp,
+            Σ|p|²], plus 8 anchor-pure columns when the anchor gate is
+            on."""
+            base = payload8_sq if with_sq else payload8
+            if anchor_gate:
+                wp = purity(label).float()[:, None]
+                payload = torch.cat([base, base * wp], 1)
+            else:
+                payload = base
+            return torch.where(valid[:, None], payload, 0.0)
+
+        label0 = torch.where(seed, gid, inf)
+        ws = WINDOW
+        # contiguous component columns, made once: the kernels take [n] rows
+        px, py, pz = (pos[:, d].contiguous() for d in range(3))
+        nx_, ny_, nz_ = (nrm[:, d].contiguous() for d in range(3))
+        if group is not None:
+            # the sweep's fixed columns with their ring halos, once a solve
+            halo_pos, halo_nrm, halo_mask = halo_columns(
+                group, ws, (px, py, pz), (nx_, ny_, nz_), mask)
+        edge_gate_val = (
+            max_edge_dist if max_edge_dist is not None else 2 * th_thickness
+        )
+        root_gate = float(np.sqrt(np.float32(edge_gate_val ** 2)))
+        # per-sweep global-merge table capacity (labels beyond it defer
+        # their global merge to a later sweep)
+        L = min(max_planes, ng, 1024)
+        sweep_kw = dict(
+            w=ws, th_thickness=float(th_thickness),
+            th_normal_cos=float(th_normal_cos), edge_gate2=edge_gate_val ** 2,
+            signed=signed_normals,
+        )
 
     def compact_slots(flag, cap):
         """Live labels (``flag``) → the first ``cap`` slots by rank:
@@ -582,9 +596,6 @@ def segment_planes(
         use_compact = positions.is_cuda and COMPACT_L < ng <= COMPACT_MAX_ROWS
     else:
         use_compact = bool(compact) and ng <= COMPACT_MAX_ROWS
-    synchronize(dev)
-    t_seed = time.perf_counter()
-    timings["seg_seed"] = t_seed - t_start
 
     if not use_compact:
         label, changed, it, peak_live, peak_over = label0, True, 0, 0, 0
@@ -595,52 +606,46 @@ def segment_planes(
             # first global merge's live count, and each merge's count
             # (read below) bounds the next one's; global_merge runs its
             # [L, L] pair test on that many slots only.
-            live_bound = int(seed.sum())
-            syncs += 1
+            live_bound = read(seed.sum())
         while changed and it < max_sweeps:
-            if graph:
-                new, live, over = graph_body(label, live_bound)
-            else:
-                new, live, over = window_body(label)
-            nch = changes(new, label)
-            nch, live, over = torch.stack([nch, live, over]).tolist()
-            syncs += 1
+            with annotate("seg.sweep", timings):
+                if graph:
+                    new, live, over = graph_body(label, live_bound)
+                else:
+                    new, live, over = window_body(label)
+                counts = torch.stack([changes(new, label), live, over])
+            nch, live, over = read(counts)
             if graph:
                 live_bound = live
             label, changed, it = new, nch >= tol_count, it + 1
             peak_live, peak_over = max(peak_live, live), max(peak_over, over)
         unconverged, sweeps_used = changed, it
-        timings["seg_warm"] = time.perf_counter() - t_seed
-        timings["seg_compact"] = 0.0
     else:
         lc = COMPACT_L
         if max_sweeps >= 1:
             # sweep 1 with the singleton specialization
-            label, live, over = window_body(label0, singleton=True)
-            nch = (label != label0).sum()
-            nch, live, over, live_now = torch.stack(
-                [nch, live, over, live_count(label).sum()]).tolist()
+            with annotate("seg.sweep", timings):
+                label, live, over = window_body(label0, singleton=True)
+                counts = torch.stack([(label != label0).sum(), live, over,
+                                      live_count(label).sum()])
+            nch, live, over, live_now = read(counts)
             changed, it, peak_live, peak_over = nch >= tol_count, 1, live, over
         else:
             label, changed, it, peak_live, peak_over = label0, True, 0, 0, 0
-            live_now = int((label0 < inf).sum())
-        syncs += 1
+            live_now = read((label0 < inf).sum())
         while changed and it < max_sweeps and live_now > lc:
-            new, live, over = window_body(label)
-            nch = (new != label).sum()
-            nch, live, over, live_now = torch.stack(
-                [nch, live, over, live_count(new).sum()]).tolist()
-            syncs += 1
+            with annotate("seg.sweep", timings):
+                new, live, over = window_body(label)
+                counts = torch.stack([(new != label).sum(), live, over,
+                                      live_count(new).sum()])
+            nch, live, over, live_now = read(counts)
             label, changed, it = new, nch >= tol_count, it + 1
             peak_live, peak_over = max(peak_live, live), max(peak_over, over)
-        t_warm = time.perf_counter()
-        timings["seg_warm"] = t_warm - t_seed
 
         # relabel to compact slots (rank order ⇒ slot order ≡ label order)
         flags = live_count(label)
         crank = prefix_sum_i32(flags.to(torch.int32))
-        live0 = int(crank[ng - 1])
-        syncs += 1
+        live0 = read(crank[ng - 1])
         peak_live = max(peak_live, live0)
         if live0 <= lc and changed and it < max_sweeps:
             slot_of = torch.where(flags & (crank <= lc), crank - 1, lc)
@@ -660,15 +665,15 @@ def segment_planes(
             sns_cols = tuple(sns[:, d].contiguous() for d in range(3))
             bound = max(live0, 1)
             while changed and it < max_sweeps:
-                clab, counters = compact_sweep(
-                    (px, py, pz), (nx_, ny_, nz_), sns_cols, mask, clab, anc_c,
-                    bound, lc=lc, root_gate=root_gate,
-                    th_anchor_cos=float(th_anchor_cos),
-                    anchor_gate=anchor_gate, jump_rounds=JUMP_ROUNDS,
-                    **sweep_kw,
-                )
-                nchg, top = counters.tolist()
-                syncs += 1
+                with annotate("seg.sweep", timings):
+                    clab, counters = compact_sweep(
+                        (px, py, pz), (nx_, ny_, nz_), sns_cols, mask, clab,
+                        anc_c, bound, lc=lc, root_gate=root_gate,
+                        th_anchor_cos=float(th_anchor_cos),
+                        anchor_gate=anchor_gate, jump_rounds=JUMP_ROUNDS,
+                        **sweep_kw,
+                    )
+                nchg, top = read(counters)
                 changed, it = nchg >= tol_count, it + 1
                 # min-slot merging skews survivors low: tighten the
                 # slot-id bound to the largest surviving slot + 1
@@ -677,43 +682,40 @@ def segment_planes(
                 clab < lc, top_lab[clab.clamp(0, lc - 1).long()], inf
             )
         unconverged, sweeps_used = changed, it
-        timings["seg_compact"] = time.perf_counter() - t_warm
-    t_loops = time.perf_counter()
-    label = torch.where(mask, label, inf)
+    with annotate("seg.finish", timings):
+        label = torch.where(mask, label, inf)
 
-    # 5. cull small planes (strict >)
-    counts = torch.bincount(label.clamp(max=ng).long(), minlength=ng + 1)
-    if group is not None:
-        counts = group.psum(counts)
-    surviving = counts[:ng] > th_point_count
-    keep = (label < inf) & surviving[label.clamp(0, ng - 1).long()]
-    label = torch.where(keep, label, inf)
+        # 5. cull small planes (strict >)
+        counts = torch.bincount(label.clamp(max=ng).long(), minlength=ng + 1)
+        if group is not None:
+            counts = group.psum(counts)
+        surviving = counts[:ng] > th_point_count
+        keep = (label < inf) & surviving[label.clamp(0, ng - 1).long()]
+        label = torch.where(keep, label, inf)
 
-    # 6. dense renumber in ascending seed order → ids 1..P
-    rank = prefix_sum_i32(surviving.to(torch.int32))
-    plane_id = torch.where(
-        label < inf, rank[label.clamp(0, ng - 1).long()], 0
-    ).to(torch.int32)
-    plane_idx = torch.where(plane_id > 0, plane_id, -1)
-    num_planes = int(surviving.sum())
-    syncs += 1
+        # 6. dense renumber in ascending seed order → ids 1..P
+        rank = prefix_sum_i32(surviving.to(torch.int32))
+        plane_id = torch.where(
+            label < inf, rank[label.clamp(0, ng - 1).long()], 0
+        ).to(torch.int32)
+        plane_idx = torch.where(plane_id > 0, plane_id, -1)
+        num_planes = read(surviving.sum())
 
-    # plane table (anchor-pure means, all-member fallback); ids beyond
-    # max_planes are dropped from the table
-    in_table = (plane_id > 0) & (plane_id <= max_planes)
-    seg = torch.where(in_table, plane_id - 1, max_planes).long()
-    fin_payload = stats_payload(label, plane_id > 0, with_sq=False)
-    acc_fin = fold_sums(seg, fin_payload, max_planes)  # max_planes: dropped
-    plane_normal, plane_center, _r_fin, cnt_f = _acc_models(acc_fin)
-    cnt = cnt_f.to(torch.int32)
-    plane_normal = torch.where((cnt > 0)[:, None], plane_normal, 0.0)
-    plane_center = torch.where((cnt > 0)[:, None], plane_center, 0.0)
-    diagnostics = torch.tensor(
-        [peak_live, peak_over, max(num_planes - max_planes, 0),
-         int(unconverged)], dtype=torch.int32,
-    )
-    synchronize(dev)
-    timings["seg_finish"] = time.perf_counter() - t_loops
+        # plane table (anchor-pure means, all-member fallback); ids beyond
+        # max_planes are dropped from the table
+        in_table = (plane_id > 0) & (plane_id <= max_planes)
+        seg = torch.where(in_table, plane_id - 1, max_planes).long()
+        fin_payload = stats_payload(label, plane_id > 0, with_sq=False)
+        # max_planes: dropped
+        acc_fin = fold_sums(seg, fin_payload, max_planes)
+        plane_normal, plane_center, _r_fin, cnt_f = _acc_models(acc_fin)
+        cnt = cnt_f.to(torch.int32)
+        plane_normal = torch.where((cnt > 0)[:, None], plane_normal, 0.0)
+        plane_center = torch.where((cnt > 0)[:, None], plane_center, 0.0)
+        diagnostics = torch.tensor(
+            [peak_live, peak_over, max(num_planes - max_planes, 0),
+             int(unconverged)], dtype=torch.int32,
+        )
     return SegmentationResult(
         plane_idx=plane_idx,
         num_planes=num_planes,

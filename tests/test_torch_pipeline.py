@@ -97,7 +97,7 @@ def test_multigrid_config_runs(scene):
         device="cpu",
     )
     assert out.num_planes >= 5
-    assert "mg_finalize" in out.timings and "stage1" in out.timings
+    assert "mg.finalize" in out.timings and "stage1" in out.timings
     assert bij_agreement(truth, out.plane_idx) > 0.5
 
 

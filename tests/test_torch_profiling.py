@@ -1,64 +1,21 @@
-"""The port's profiling module against the JAX package's, on the CPU.
-
-``summarize`` prints the JAX package's JSON line bit for bit;
-``StageTimer`` accumulates and rates as JAX's; ``trace`` writes a Chrome
+"""The port's profiling module on the CPU: ``trace`` writes a Chrome
 trace holding the ``annotate`` spans the pipeline puts around its
 stages (``stage1``, ``segmentation``, ``unsort``, ``device_to_host``,
 ``colorize`` on the window path; ``knn`` and ``normals`` on the
-exact-kNN path).
+exact-kNN path).  ``tests/test_torch_spans.py`` holds the spans of every
+host stage.
 """
 
 import json
 import os
 
-import numpy as np
 import pytest
-import torch
 
-from buildingsegment_tpu.profiling import (
-    StageTimer as JaxStageTimer,
-    summarize as jax_summarize,
-)
 from buildingsegment_tpu_torch.config import PipelineConfig
 from buildingsegment_tpu_torch.io.ply import HostPointCloud
 from buildingsegment_tpu_torch.pipeline import segment_cloud
-from buildingsegment_tpu_torch.profiling import (
-    TRACE_FILE,
-    StageTimer,
-    annotate,
-    summarize,
-    trace,
-)
+from buildingsegment_tpu_torch.profiling import TRACE_FILE, annotate, trace
 from buildingsegment_tpu_torch.utils import make_building_cloud
-
-
-@pytest.mark.parametrize("timings,points", [
-    ({"read": 0.123456789, "stage1": 1.0, "segmentation": 2.5e-5}, 222828),
-    ({}, 0),
-    ({"total": 3.3333333}, 1_082_304),
-])
-def test_summarize_matches_jax(timings, points):
-    assert summarize(timings, points) == jax_summarize(timings, points)
-
-
-def test_stage_timer_matches_jax():
-    a, b = JaxStageTimer(), StageTimer()
-    for timer in (a, b):
-        for name in ("x", "y", "x"):
-            with timer.stage(name):
-                pass
-    assert sorted(a.times) == sorted(b.times) == ["x", "y"]
-    b.times = dict(a.times)
-    assert b.mpoints_per_sec(10**6) == a.mpoints_per_sec(10**6)
-    assert b.mpoints_per_sec(10**6, "y") == a.mpoints_per_sec(10**6, "y")
-
-
-def test_stage_timer_blocks_on_tensors():
-    timer = StageTimer()
-    x = torch.ones(4)
-    with timer.stage("a", block_on=(x, {"b": [x * 2]})):
-        y = x + 1
-    assert timer.times["a"] > 0 and float(y.sum()) == 8.0
 
 
 def _spans(path):
