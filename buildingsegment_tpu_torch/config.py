@@ -163,14 +163,16 @@ class PipelineConfig:
     # seed criterion, seg/coarse.py)
     seg_seed_source: Optional[str] = None
 
-    # Host-proven point-spacing hint (mm, the morton_small pattern):
-    # the drivers estimate scan density at read time
-    # (core.quantize.estimate_spacing_mm, bucketed to powers of two)
-    # and the multigrid edge gates then scale with the MEASURED
+    # Point-spacing hint (mm): when None, segment_cloud and
+    # segment_files measure it on the device in stage 1 (the occupied
+    # 512 mm cells of the Morton order; the hint
+    # core.quantize.estimate_spacing_mm gives, bucketed to powers of
+    # two), and the multigrid edge gates then scale with the MEASURED
     # density instead of growing sqrt(group) per level
     # unconditionally — dense scans keep tight gates at every level
     # (no cross-building bridging), sparse scans get exactly the reach
-    # connectivity needs (seg/coarse.py).  None = no hint: the
+    # connectivity needs (seg/coarse.py).  A value set here is used as
+    # given; run_device_pipeline and dist/ read None as no hint: the
     # conservative unconditional scaling applies.
     spacing_hint_mm: Optional[float] = None
 

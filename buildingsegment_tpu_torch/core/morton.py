@@ -18,6 +18,7 @@ __all__ = [
     "morton_decode",
     "morton_argsort",
     "morton_sort",
+    "occupied_cells",
     "unsort_labels",
     "WORD_BITS",
     "TOTAL_BITS",
@@ -144,6 +145,25 @@ def morton_sort(
     )
     spos = torch.where(m[:, None], spos, 1 << 24)
     return spos, m, order
+
+
+def occupied_cells(spos: torch.Tensor, smask: torch.Tensor,
+                   cell_bits: int) -> torch.Tensor:
+    """Number of distinct ``2^cell_bits`` cells ``spos >> cell_bits`` among
+    the live rows of :func:`morton_sort`'s output, as an int64 scalar on
+    the rows' device.
+
+    Both of its branches keep each such cell's rows contiguous for
+    ``cell_bits`` ≤ 20 (the residual word's axes are not interleaved, so
+    coarser cells would split): a live row opens a cell when it is the
+    first row or its cell differs from the previous row's.  Padding sorts
+    last and is masked, so it never counts.
+    """
+    if not 0 <= cell_bits <= TOTAL_BITS:
+        raise ValueError(f"cell_bits={cell_bits} outside [0, {TOTAL_BITS}]")
+    opens = smask.clone()
+    opens[1:] &= ((spos[1:] ^ spos[:-1]) >> cell_bits).any(dim=1)
+    return opens.sum()
 
 
 def unsort_labels(order: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ __all__ = [
     "dedup_quantized",
     "dedup_keep_mask",
     "estimate_spacing_mm",
+    "spacing_from_occupancy",
     "spacing_bucket_mm",
 ]
 
@@ -123,6 +124,12 @@ def estimate_spacing_mm(positions: np.ndarray, cell_mm: int = 512) -> float:
         occupied = len(np.unique(key))
     else:  # pragma: no cover — >~1000 km extent at cell=512
         occupied = len(np.unique(q, axis=0))
+    return spacing_from_occupancy(n, occupied, cell_mm)
+
+
+def spacing_from_occupancy(n: int, occupied: int, cell_mm: int = 512) -> float:
+    """Point spacing (mm) of ``n`` surface points in ``occupied`` cells of
+    ``cell_mm``: points per cell ≈ (cell / spacing)²."""
     per = n / max(occupied, 1)
     return float(cell_mm) / max(per, 1.0) ** 0.5
 

@@ -48,14 +48,15 @@ from buildingsegment_tpu_torch.io.ply import HostPointCloud, read_ply, write_ply
 from buildingsegment_tpu_torch.core.morton import (
     morton_argsort,
     morton_sort,
+    occupied_cells,
     unsort_labels,
 )
 from buildingsegment_tpu_torch.core.pointset import PointBatch
 from buildingsegment_tpu_torch.core.quantize import (
     dedup_keep_mask,
-    estimate_spacing_mm,
     shift_to_origin,
     spacing_bucket_mm,
+    spacing_from_occupancy,
 )
 from buildingsegment_tpu_torch.ops.fused import knn_normals_window_sorted
 from buildingsegment_tpu_torch.ops.knn import knn
@@ -80,6 +81,10 @@ __all__ = [
 ]
 
 
+#: the spacing hint's cells: 2^9 = 512 mm, ``estimate_spacing_mm``'s
+_CELL_BITS = 9
+
+
 def resolve_knn_method(config: PipelineConfig, capacity: int) -> str:
     """'auto' → 'brute' at capacity ≤ knn_auto_threshold, else 'window'."""
     if config.knn_method != "auto":
@@ -100,11 +105,13 @@ class PipelineOutput:
       in ``segment_files`` the reader's whole load
       (``reader.load_scan``: ``read_ply``, ``dedup`` and the upload);
     * ``upload.shift`` (host bbox shift), ``upload.copy`` (pad and
-      pageable copy), ``upload.hints`` (``morton_small`` and the spacing
-      hint), ``upload.sync`` (the copy's wait) — the upload's parts;
+      pageable copy), ``upload.hints`` (the ``morton_small`` proof),
+      ``upload.sync`` (the copy's wait) — the upload's parts;
     * ``stage1``, ``segmentation``, ``unsort`` — the device stages, each
       ending in a synchronize; ``knn`` and ``normals`` inside ``stage1``
-      on the exact-kNN paths;
+      on the exact-kNN paths; ``stage1.cells`` inside ``stage1`` on the
+      window path when it measures the spacing hint (the read of the
+      occupied-cell count, after the synchronize);
     * the solve's spans inside ``segmentation``: ``mg.seed``,
       ``mg.refine``, ``mg.finalize`` (every multigrid level),
       ``seg.seed``, ``seg.sweep`` (one a sweep), ``seg.sync`` (one a
@@ -134,6 +141,9 @@ class PipelineOutput:
     timings: dict                  # span name → seconds (see above)
     num_sweeps: int = 0
     host_syncs: int = 0
+    # the solve's diagnostics, and ``occupied_cells_512mm``: the occupied
+    # 512 mm cells that the spacing hint was measured from (0: the hint
+    # was the configuration's, or the path reads none)
     diagnostics: dict = dataclasses.field(default_factory=dict)
     # the run's shifted positions int32[C, 3] in input order (padding rows
     # hold PAD_COORD) and mask bool[C], on the run's device: the raster
@@ -170,6 +180,7 @@ def run_device_pipeline(
     stats_rank_mode=None,
     morton_small: bool = False,
     spacing_hint_mm=None,
+    density: Optional[dict] = None,
     timings: Optional[dict] = None,
 ):
     """The on-device part: shift → kNN → normals → segmentation.
@@ -182,6 +193,13 @@ def run_device_pipeline(
     path, as in the JAX package.  ``timings``, when given, receives the
     stages' spans (``PipelineOutput``); ``stage1``, ``segmentation`` and
     ``unsort`` each end in a device synchronize.
+
+    ``spacing_hint_mm=None`` runs without a hint, unless ``density`` is
+    given: the window path then measures the hint as
+    ``estimate_spacing_mm`` does, from the occupied 512 mm cells that
+    stage 1's Morton order counts on the device, read after stage 1's
+    synchronize; ``density`` receives that count as
+    ``occupied_cells_512mm``.  An empty cloud gets no hint.
     """
     timings = {} if timings is None else timings
     if knn_method in ("brute", "pallas"):
@@ -200,6 +218,7 @@ def run_device_pipeline(
         seg_group > 1 and positions.shape[0] % (seg_group ** seg_levels) == 0
     )
     dev = positions.device
+    measure = density is not None and spacing_hint_mm is None
     with annotate("stage1", timings):
         shifted, lo, _hi = shift_to_origin(positions, mask)
         spos, smask, order = morton_sort(shifted, mask, morton_small)
@@ -217,7 +236,14 @@ def run_device_pipeline(
                 window=knn_window_size, radius=normal_radius,
                 max_nn=normal_max_nn,
             )
+        if measure:
+            counts = _cell_counts(spos, smask)
         synchronize(dev)
+        if measure:
+            with annotate("stage1.cells", timings):
+                live, occupied = counts.tolist()
+            spacing_hint_mm = _spacing_hint(live, occupied)
+            density["occupied_cells_512mm"] = occupied
 
     # fine-level edge gate: widened past 2·thickness on sparse scans
     # when the density hint is proven
@@ -254,6 +280,22 @@ def run_device_pipeline(
         plane_idx = unsort_labels(order, seg.plane_idx)
         synchronize(dev)
     return shifted, lo, dataclasses.replace(seg, plane_idx=plane_idx)
+
+
+def _cell_counts(spos: torch.Tensor, smask: torch.Tensor) -> torch.Tensor:
+    """int64[2] on the rows' device: the live rows of ``morton_sort``'s
+    output and the 512 mm cells they occupy."""
+    return torch.stack([smask.sum(), occupied_cells(spos, smask, _CELL_BITS)])
+
+
+def _spacing_hint(live: int, occupied: int) -> Optional[float]:
+    """The spacing hint of ``live`` points in ``occupied`` 512 mm cells,
+    ``spacing_bucket_mm(estimate_spacing_mm(...))`` bit for bit; None
+    for an empty cloud."""
+    if not live:
+        return None
+    return spacing_bucket_mm(
+        spacing_from_occupancy(live, occupied, 1 << _CELL_BITS))
 
 
 def _classic_pipeline(
@@ -321,22 +363,14 @@ def _prove_morton_small(config: PipelineConfig, shifted_h) -> PipelineConfig:
     return config
 
 
-def _prove_spacing(config: PipelineConfig, shifted_h) -> PipelineConfig:
-    """Measure the scan density on the host and set the (power-of-two
-    bucketed) spacing hint that widens the edge gate on sparse scans."""
-    if config.spacing_hint_mm is not None or shifted_h.size == 0:
-        return config
-    hint = spacing_bucket_mm(estimate_spacing_mm(shifted_h))
-    return dataclasses.replace(config, spacing_hint_mm=hint)
-
-
 def _upload(cloud: HostPointCloud, config: PipelineConfig, dev,
             timings: dict):
-    """Host bbox shift, padded upload and the proven hints, each part a
-    span in ``timings``.  Returns (batch, shifted_host int32[N, 3],
-    lo_host int32[3], config with the hints); the device shift is then
-    exactly 0 per axis, so host and device agree on every coordinate.
-    The upload is complete on return."""
+    """Host bbox shift, padded upload and the proven ``morton_small``
+    hint, each part a span in ``timings`` (the spacing hint is measured
+    in stage 1, ``run_device_pipeline``).  Returns (batch, shifted_host
+    int32[N, 3], lo_host int32[3], config with the hint); the device
+    shift is then exactly 0 per axis, so host and device agree on every
+    coordinate.  The upload is complete on return."""
     n = cloud.count
     with annotate("upload.shift", timings):
         if n:
@@ -350,7 +384,6 @@ def _upload(cloud: HostPointCloud, config: PipelineConfig, dev,
                                   device=dev)
     with annotate("upload.hints", timings):
         config = _prove_morton_small(config, shifted_h)
-        config = _prove_spacing(config, shifted_h)
     with annotate("upload.sync", timings):
         synchronize(dev)
     return batch, shifted_h, lo_h, config
@@ -358,8 +391,10 @@ def _upload(cloud: HostPointCloud, config: PipelineConfig, dev,
 
 def _run_device(batch: PointBatch, config: PipelineConfig,
                 signed_normals: bool, timings: dict):
-    """``run_device_pipeline`` on the batch under ``config``; returns
-    (shifted positions, SegmentationResult)."""
+    """``run_device_pipeline`` on the batch under ``config``, measuring
+    the spacing hint when ``config`` sets none; returns (shifted
+    positions, SegmentationResult, occupied 512 mm cells or 0)."""
+    density = {}
     shifted, _lo, seg = run_device_pipeline(
         batch.positions, batch.mask,
         k_search=max(config.knn_k_pad, config.normal_max_nn),
@@ -386,13 +421,14 @@ def _run_device(batch: PointBatch, config: PipelineConfig,
         stats_rank_mode=config.stats_rank_mode,
         morton_small=config.morton_small,
         spacing_hint_mm=config.spacing_hint_mm,
+        density=density,
         timings=timings,
     )
-    return shifted, seg
+    return shifted, seg, density.get("occupied_cells_512mm", 0)
 
 
-def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, config,
-                   timings, t0) -> PipelineOutput:
+def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, occupied,
+                   config, timings, t0) -> PipelineOutput:
     """Fetch the labels and the plane table, colorize; ``timings["total"]``
     runs from ``t0``."""
     n = cloud.count
@@ -435,6 +471,7 @@ def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, config,
             "labels_over_merge_cap": int(diag[1]),
             "planes_over_capacity": int(diag[2]),
             "hit_max_sweeps": int(diag[3]),
+            "occupied_cells_512mm": occupied,
         },
         device_shifted=shifted,
         device_mask=mask,
@@ -457,9 +494,10 @@ def segment_cloud(
         with annotate("dedup", timings):
             cloud = _maybe_dedup(cloud, config)
         batch, shifted_h, lo_h, config = _upload(cloud, config, dev, timings)
-    shifted, seg = _run_device(batch, config, signed_normals, timings)
+    shifted, seg, occupied = _run_device(batch, config, signed_normals,
+                                         timings)
     return _finish_output(cloud, shifted_h, lo_h, shifted, batch.mask, seg,
-                          config, timings, t0)
+                          occupied, config, timings, t0)
 
 
 def dump_stages(
@@ -596,7 +634,8 @@ def segment_files(
     dev = torch.device(device)
 
     def load_scan(path):
-        """Reader thread: decode, dedup, bucket, upload, prove the hints.
+        """Reader thread: decode, dedup, bucket, upload, prove
+        ``morton_small``.
         ``_upload`` synchronizes, so the batch is on the device before
         the main thread reads it.  Returns the scan's timings too."""
         timings = {}
@@ -626,10 +665,12 @@ def segment_files(
             if i + 2 < len(input_paths):
                 pending.append(rpool.submit(load_scan, input_paths[i + 2]))
             t0 = time.perf_counter()
-            shifted, seg = _run_device(batch, cfg, signed_normals, timings)
+            shifted, seg, occupied = _run_device(batch, cfg, signed_normals,
+                                                 timings)
             writes.append(wpool.submit(
                 _write_scan, cloud, shifted_h, lo_h, shifted, batch.mask,
-                seg, cfg, timings, t0, in_path, out_path, render_dir,
+                seg, occupied, cfg, timings, t0, in_path, out_path,
+                render_dir,
             ))
         outs = []
         for w in writes:
@@ -641,18 +682,18 @@ def segment_files(
         return outs
 
 
-def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, cfg, timings,
-                t0, in_path, out_path, render_dir) -> PipelineOutput:
+def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, occupied, cfg,
+                timings, t0, in_path, out_path, render_dir) -> PipelineOutput:
     """Writer thread: queue the raster (it reuses the positions on the
     device), fetch and colorize, write the labeled PLY, then fetch the
     rasters and write the PNGs.  ``cfg`` is the scan's configuration (the
-    caller's, with the scan's capacity and hints)."""
+    caller's, with the scan's capacity and ``morton_small`` hint)."""
     rasters = None
     if render_dir is not None:
         with annotate("render.dispatch", timings):
             rasters = dispatch_ortho(shifted_h, shifted, mask, cfg)
-    out = _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, cfg,
-                         timings, t0)
+    out = _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg,
+                         occupied, cfg, timings, t0)
     with annotate("write_ply", timings):
         write_ply(out.cloud, out_path, position_scale=cfg.output_scale,
                   ascii=not cfg.output_binary)

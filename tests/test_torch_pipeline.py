@@ -65,7 +65,9 @@ def test_segment_cloud_matches_jax(scene, cfg):
     np.testing.assert_array_equal(b.bbox_min, a.bbox_min)
     np.testing.assert_array_equal(b.plane_counts, a.plane_counts)
     np.testing.assert_allclose(b.plane_normals, a.plane_normals, atol=1e-4)
-    assert b.diagnostics == a.diagnostics
+    # the port reports the occupied 512 mm cells its hint was measured from
+    cells = len(np.unique((pts - pts.min(axis=0)) // 512, axis=0))
+    assert b.diagnostics == dict(a.diagnostics, occupied_cells_512mm=cells)
 
 
 def test_segment_file_round_trip(scene, tmp_path):

@@ -37,7 +37,8 @@ _CLI_SPANS = {"read_ply", "host_to_device", *_UPLOAD, "stage1",
               "segmentation", "device_to_host", "colorize", "write_ply",
               "seg.seed", "seg.sweep", "seg.sync", "seg.finish"}
 _PATH_SPANS = {
-    "window": {"unsort", "mg.seed", "mg.refine", "mg.finalize"},
+    "window": {"stage1.cells", "unsort", "mg.seed", "mg.refine",
+               "mg.finalize"},
     "brute": {"knn", "normals"},
 }
 
@@ -171,8 +172,8 @@ def test_segment_files_spans_by_thread(scans, tmp_path):
         by_tid[e["tid"]].add(e["name"])
     main_tid = threading.get_native_id()
     main_spans = by_tid.pop(main_tid)
-    assert {"wait.reader", "wait.writer", "stage1", "segmentation",
-            "unsort", "seg.sync"} <= main_spans
+    assert {"wait.reader", "wait.writer", "stage1", "stage1.cells",
+            "segmentation", "unsort", "seg.sync"} <= main_spans
     assert not main_spans & {"reader.load_scan", "read_ply", "write_ply",
                              "render.dispatch", "render.finish"}
     reader = [s for s in by_tid.values() if "reader.load_scan" in s]
