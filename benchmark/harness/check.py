@@ -4,7 +4,9 @@ its cell's workload file fixes; and the check that nothing of JAX or the
 JAX package was loaded.
 
 The numbers (each a worst case over the sampled scans; 0 where the two
-agree bit for bit):
+agree bit for bit).  Stage 1's come from the module of the kNN path the
+configuration states (``benchmark/paths/<knn_method>.py``); the window
+path's are :func:`compare_stage1`:
 
 * ``sort_mismatch`` — share of points whose Morton-sorted position
   differs (stage 1's rows are compared in that order);
@@ -81,8 +83,8 @@ def _max(x: np.ndarray) -> float:
 
 
 def compare_stage1(got: dict, ref: dict, n: int) -> Dict[str, float]:
-    """Stage 1's outputs in the Morton order; the n valid rows sort
-    first, and only they are compared."""
+    """The window path's stage 1 in the Morton order; the n valid rows
+    sort first, and only they are compared."""
     same = np.all(got["spos"][:n] == ref["spos"][:n], axis=1)
     dk = got["kth_sq_dist"][:n].astype(np.float64)
     dk_ref = ref["kth_sq_dist"][:n].astype(np.float64)
@@ -147,13 +149,14 @@ def compare_rasters(got: Optional[dict], ref: dict) -> Dict[str, float]:
     return {"raster_gap": gap, "raster_mismatch": bad / max(total, 1)}
 
 
-def compare_scan(got: ScanOut, ref, *, ply: bool = True,
+def compare_scan(got: ScanOut, ref, path, *, ply: bool = True,
                  rasters: Optional[dict] = None) -> Dict[str, float]:
-    """Every number of one scan (see the module's docstring)."""
+    """Every number of one scan (see the module's docstring); ``path`` is
+    the module of the configuration's kNN path, which compares stage 1."""
     nums = {}
     if got.stage1 is not None:
-        nums.update(compare_stage1(got.stage1, ref.stage1,
-                                   ref.labels.shape[0]))
+        nums.update(path.compare_stage1(got.stage1, ref.stage1,
+                                        ref.labels.shape[0]))
     nums.update(compare_planes(got, ref))
     if ply:
         nums["ply_mismatch"] = compare_ply(got.ply, ref)

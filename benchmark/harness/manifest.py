@@ -10,10 +10,13 @@ in a file of its own, found by name under ``benchmark/``:
   traffic parameters and the limits of its comparison;
 * ``traffic/<kind>.py``: a loop over one entry of the port, with
   ``run(cell, ctx) -> record``;
+* ``paths/<knn_method>.py``: stage 1's capture, plain reference and
+  comparison for the kNN path the configuration states
+  (:mod:`benchmark.harness.paths`);
 * ``metrics/<metric>.py``: ``read(record) -> float | None``.
 
-So a later change adds a cell, a configuration, a traffic kind or a
-metric by adding files and entries, and edits none.
+So a later change adds a cell, a configuration (on any kNN path), a
+traffic kind or a metric by adding files and entries, and edits none.
 """
 
 from __future__ import annotations
@@ -90,7 +93,9 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     )
 
 
-def _load_file(path: str, module: str):
+def load_file(path: str, module: str):
+    """The module in the file ``path``, importable by the name ``module``
+    (loaded again where that name holds another file)."""
     have = sys.modules.get(module)
     if have is not None and getattr(have, "__file__", None) == path:
         return have
@@ -108,14 +113,14 @@ def load_traffic(cell: Cell):
     the name ``benchmark.traffic.<kind>`` (ranks of a spawned group import
     it by that name)."""
     path = os.path.join(bench_dir(cell.root), "traffic", f"{cell.traffic}.py")
-    return _load_file(path, f"benchmark.traffic.{cell.traffic}")
+    return load_file(path, f"benchmark.traffic.{cell.traffic}")
 
 
 def metric_reader(name: str, root: str = ROOT) -> Callable[[dict],
                                                            Optional[float]]:
     """``read`` of ``metrics/<name>.py``."""
     path = os.path.join(bench_dir(root), "metrics", f"{name}.py")
-    mod = _load_file(path, "benchmark_metric_" + name.replace(".", "_"))
+    mod = load_file(path, "benchmark_metric_" + name.replace(".", "_"))
     return mod.read
 
 

@@ -1,7 +1,8 @@
 """The reference's side of the comparison: for each sampled scan, read the
-input file with the benchmark's own reader, run the plain reference on
-the card, and compare the port's outputs with it.  The control puts the
-reference computed with TF32 products in the port's place."""
+input file with the benchmark's own reader, run the plain reference of
+the configuration's kNN path on the card, and compare the port's outputs
+with it.  The control puts the reference computed with TF32 products in
+the port's place."""
 
 from __future__ import annotations
 
@@ -11,9 +12,10 @@ import numpy as np
 import torch
 
 from benchmark.harness.check import ScanOut, compare_scan, worst
+from benchmark.harness.paths import load_path
 from benchmark.reference.io import read_input_mm, read_png, read_ply_vertices
 from benchmark.reference.raster import PNGS, rasters_reference
-from benchmark.reference.segment import RefScan, segment_reference
+from benchmark.reference.segment import RefScan
 
 
 def padded_count(n: int, multiple: int) -> int:
@@ -78,6 +80,7 @@ def file_numbers(cell, got: Dict[int, ScanOut], inputs: Dict[int, str],
     ``control`` the port's outputs are ignored and the control stands in
     for them (``got`` names only the scans)."""
     params = cell.config["pipeline"]
+    path = load_path(cell)
     per = []
     for j in sorted(got):
         if got[j] is None:  # an answer that never came
@@ -85,18 +88,18 @@ def file_numbers(cell, got: Dict[int, ScanOut], inputs: Dict[int, str],
             continue
         mm = read_input_mm(inputs[j])
         cap = capacity(mm.shape[0])
-        ref = segment_reference(mm, params, capacity=cap, device=device)
+        ref = path.reference(mm, params, capacity=cap, device=device)
         ref_r = (rasters_reference(ref.shifted, cap, params, device)
                  if rasters else None)
         if control:
-            ctl = segment_reference(mm, params, capacity=cap, device=device,
-                                    tf32=True)
+            ctl = path.reference(mm, params, capacity=cap, device=device,
+                                 tf32=True)
             ctl_r = (rasters_reference(ctl.shifted, cap, params, device,
                                        tf32=True) if rasters else None)
             out = as_control(ctl, got[j].stage1 is not None, ctl_r)
         else:
             out = got[j]
-        per.append(compare_scan(out, ref, rasters=ref_r))
+        per.append(compare_scan(out, ref, path, rasters=ref_r))
         del ref
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()

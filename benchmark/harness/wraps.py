@@ -2,7 +2,8 @@
 files: the program's code is not changed.
 
 * :func:`capture_stage1` keeps stage 1's outputs of one scan as the
-  timed path made them (on a warm-up scan);
+  timed window path made them (on a warm-up scan;
+  ``benchmark/paths/window.py``'s ``capture``);
 * :func:`kernel_spans` puts a ``bench.kernel.<name>`` span around each
   call of a kernel (the traced scans), so the trace gives its device
   time;

@@ -125,6 +125,20 @@ def test_files_the_manifest_names_exist(cell):
     assert c.limits() and all(v >= 0 for v in c.limits().values())
 
 
+@pytest.mark.parametrize("entry", MAN["configs"], ids=lambda e: e["name"])
+def test_every_config_states_a_path_with_its_files(entry):
+    """The kNN path the configuration states has its module, and the
+    configuration its tiny scenes for the CPU tests."""
+    with open(os.path.join(ROOT, entry["file"])) as f:
+        method = json.load(f).get("knn_method")
+    assert method and NAME.match(method)
+    bench = os.path.join(ROOT, "benchmark")
+    assert os.path.isfile(os.path.join(bench, "paths", f"{method}.py"))
+    with open(os.path.join(bench, "tests", "scenes",
+                           f"{entry['name']}.json")) as f:
+        assert {"tiny", "control"} <= set(json.load(f))
+
+
 def test_per_layer_workloads_are_cells():
     for m in METRICS:
         for w in m.get("workloads", []):

@@ -12,26 +12,25 @@ import sys
 import pytest
 import torch
 
-from benchmark import run as bench_run
 from benchmark.harness import loop
 from benchmark.harness.check import judge
 from benchmark.harness.manifest import load_cell, load_manifest, load_traffic
-from benchmark.tests.tiny import CONTROL_SCENES, make_root
+from benchmark.tests import tiny as tiny_bench
 
 CELLS = [w["name"] for w in load_manifest()["workloads"]]
 SEED = 5000000029
+#: the sources of per-layer metrics that the port's timings and counters
+#: give, which a CPU run reads as the card's does
+PROGRAM = ("program_span", "program_counter")
 
 
 @pytest.fixture(scope="module")
 def tiny(tmp_path_factory):
-    return make_root(str(tmp_path_factory.mktemp("bench")))
+    return tiny_bench.make_root(str(tmp_path_factory.mktemp("bench")))
 
 
-def _run(root, cell, trace=0, seconds=1.0):
-    args = bench_run.parse(["--workload", cell, "--seed", str(SEED),
-                            "--seconds", str(seconds), "--trace",
-                            str(trace)])
-    return bench_run.run_cell(args, device="cpu", root=root)
+def _run(root, cell, trace=0):
+    return tiny_bench.run(root, cell, SEED, trace=trace)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -45,15 +44,20 @@ def test_cell_runs_and_agrees_with_the_reference(tiny, cell):
     assert list(res)[-1] == "checks"
 
 
-@pytest.mark.parametrize("cell", [c for c in CELLS
-                                  if c.endswith(".cli_loop")])
+@pytest.mark.parametrize("cell", [
+    c for c in CELLS
+    if any(m["source"] in PROGRAM for m in load_cell(c).per_layer)])
 def test_traced_run_reads_per_layer_metrics(tiny, cell):
     res = _run(tiny, cell, trace=1)
     assert res["correct"], res["checks"]
-    # on the CPU no device operation runs: the per-layer metrics from the
-    # program's timings and counters are there, the rooflines are not
+    # on the CPU no device operation runs: the cell's per-layer metrics
+    # from the program's timings and counters are there, and the idle
+    # share of a trace with no device time; the rooflines are not
     names = set(res["metrics"])
-    assert {"host_io_ms.cli", "upload_ms.cli", "device_idle_pct"} <= names
+    per_layer = load_cell(cell, tiny).per_layer
+    want = {m["name"] for m in per_layer
+            if m["source"] in PROGRAM or m["name"] == "device_idle_pct"}
+    assert want <= names, sorted(want - names)
     assert not any(n.endswith("_roofline") for n in names)
     assert res["device"]["window_s"] > 0
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
@@ -61,8 +65,9 @@ def test_traced_run_reads_per_layer_metrics(tiny, cell):
 
 @pytest.fixture(scope="module")
 def control_root(tmp_path_factory):
-    return make_root(str(tmp_path_factory.mktemp("bench_control")), pool=2,
-                     scenes=CONTROL_SCENES)
+    return tiny_bench.make_root(
+        str(tmp_path_factory.mktemp("bench_control")), pool=2,
+        scene="control")
 
 
 @pytest.mark.parametrize("cell", CELLS)

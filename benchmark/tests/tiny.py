@@ -1,8 +1,14 @@
 """A copy of the benchmark at a size the CPU runs in seconds: the same
-manifest, cells, traffic kinds, metrics and limits, with each
-configuration's scenes small and the window path forced (such small
-scans would resolve to exact kNN).  Used by the tests to drive whole
-runs on the port's plain paths."""
+manifest, cells, traffic kinds, kNN paths, metrics and limits, with each
+configuration's scene made small and its pipeline set to the kNN path
+it states (such small scans would resolve "auto" to brute).  Used by the
+tests to drive whole runs on the port's plain paths.
+
+Each configuration's small scenes are a file of their own,
+``benchmark/tests/scenes/<config>.json``: ``tiny`` for the runs and
+``control`` for the control's test, at which the control shows.  The
+copy holds those files too, so a copy can serve as the source of
+another."""
 
 from __future__ import annotations
 
@@ -12,47 +18,55 @@ import shutil
 
 from benchmark.harness.manifest import ROOT, load_manifest
 
-#: each configuration's tiny scenes: small houses, dense enough that a
-#: point's normal radius holds neighbours
-SCENES = {
-    "tls_house_25mm": {
-        "spacing_mm": 60.0,
-        "smallest": {"width_mm": 2000.0, "depth_mm": 1500.0,
-                     "wall_h_mm": 1500.0, "ridge_h_mm": 2000.0},
-        "largest": {"width_mm": 3000.0, "depth_mm": 2000.0,
-                    "wall_h_mm": 2000.0, "ridge_h_mm": 2600.0}},
-}
-
-#: scenes at which the control shows: the cell's 25 mm spacing over
-#: houses of 2.5 × 2 m to 3.5 × 2.5 m (50k–95k points)
-CONTROL_SCENES = {
-    "tls_house_25mm": {
-        "spacing_mm": 25.0,
-        "smallest": {"width_mm": 2500.0, "depth_mm": 2000.0,
-                     "wall_h_mm": 1500.0, "ridge_h_mm": 2200.0},
-        "largest": {"width_mm": 3500.0, "depth_mm": 2500.0,
-                    "wall_h_mm": 2000.0, "ridge_h_mm": 2800.0}},
-}
+#: the folders under benchmark/ that a copy takes as they are
+COPIED = ("traffic", "metrics", "workloads", "paths", "tests/scenes")
+#: a window that finishes every scan of the tiny pool on a loaded CPU: a
+#: sampled scan the window never reached fails the run, as on the card
+WINDOW_S = 4.0
 
 
-def make_root(dest: str, *, pool: int = 3, scenes=None) -> str:
-    """A checkout-like folder under ``dest`` holding the tiny benchmark
-    (``scenes`` in place of :data:`SCENES`); returns its path."""
+def scenes_file(root: str, config: str) -> str:
+    return os.path.join(root, "benchmark", "tests", "scenes",
+                        f"{config}.json")
+
+
+def make_root(dest: str, *, pool: int = 3, scene: str = "tiny",
+              src: str = ROOT) -> str:
+    """A checkout-like folder under ``dest`` holding the benchmark of
+    ``src`` with each configuration's ``scene`` (``tiny`` or ``control``)
+    from its scenes file; returns its path."""
     root = os.path.join(dest, "tiny")
     bench = os.path.join(root, "benchmark")
-    for sub in ("traffic", "metrics", "workloads"):
-        shutil.copytree(os.path.join(ROOT, "benchmark", sub),
-                        os.path.join(bench, sub))
-    os.makedirs(os.path.join(bench, "configs"))
-    man = load_manifest()
+    for sub in COPIED:
+        shutil.copytree(os.path.join(src, "benchmark", sub),
+                        os.path.join(bench, sub),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    man = load_manifest(src)
     for c in man["configs"]:
-        with open(os.path.join(ROOT, c["file"])) as f:
+        with open(os.path.join(src, c["file"])) as f:
             cfg = json.load(f)
-        cfg["scene"] = dict(cfg["scene"], pool=pool,
-                            **(scenes or SCENES)[c["name"]])
-        cfg["pipeline"] = dict(cfg["pipeline"], knn_method="window")
-        with open(os.path.join(root, c["file"]), "w") as f:
+        with open(scenes_file(src, c["name"])) as f:
+            small = json.load(f)[scene]
+        cfg["scene"] = dict(cfg["scene"], pool=pool, **small)
+        if "knn_method" in cfg:
+            cfg["pipeline"] = dict(cfg["pipeline"],
+                                   knn_method=cfg["knn_method"])
+        out = os.path.join(root, c["file"])
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
             json.dump(cfg, f)
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(man, f)
     return root
+
+
+def run(root: str, cell: str, seed: int, *, trace: int = 0,
+        seconds: float = WINDOW_S) -> dict:
+    """One run of ``cell`` of the benchmark under ``root`` on the CPU, on
+    the port's plain paths; its result."""
+    from benchmark import run as bench_run
+
+    args = bench_run.parse(["--workload", cell, "--seed", str(seed),
+                            "--seconds", str(seconds), "--trace",
+                            str(trace)])
+    return bench_run.run_cell(args, device="cpu", root=root)

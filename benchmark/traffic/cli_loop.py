@@ -18,6 +18,7 @@ import time
 
 from benchmark.harness import loop
 from benchmark.harness.check import ScanOut
+from benchmark.harness.paths import load_path
 from benchmark.harness.refcheck import (
     file_numbers,
     padded_count,
@@ -25,12 +26,7 @@ from benchmark.harness.refcheck import (
 )
 from benchmark.harness.scenes import make_pool
 from benchmark.harness.trace import profile_block
-from benchmark.harness.wraps import (
-    capture_stage1,
-    kernel_spans,
-    kernel_work,
-    roofline_kernels,
-)
+from benchmark.harness.wraps import kernel_spans, kernel_work, roofline_kernels
 
 
 def _port(cell):
@@ -42,15 +38,16 @@ def _port(cell):
 
 def check_paths(cell, pipeline, config, scans, capacity) -> None:
     """Every scan takes the path the configuration names."""
-    want = cell.config.get("knn_method")
+    want = cell.config["knn_method"]
     for i, mm in enumerate(scans):
         got = pipeline.resolve_knn_method(config, capacity(len(mm)))
-        if want is not None and got != want:
+        if got != want:
             raise SystemExit(f"pool scan {i} ({len(mm)} points) resolves to "
                              f"{got!r}, the configuration states {want!r}")
 
 
 def run(cell, ctx: loop.Ctx) -> dict:
+    knn_path = load_path(cell)
     pipeline, config = _port(cell)
     from buildingsegment_tpu_torch.io.ply import write_ply
 
@@ -71,7 +68,7 @@ def run(cell, ctx: loop.Ctx) -> dict:
     for j in reversed(range(len(scans))):
         cap = [] if j in picked else None
         with (contextlib.nullcontext() if cap is None
-              else capture_stage1(cap)):
+              else knn_path.capture(cap)):
             segment(j)
         if cap:
             stage1[j] = cap[0]

@@ -16,6 +16,7 @@ import time
 
 from benchmark.harness import loop
 from benchmark.harness.check import ScanOut
+from benchmark.harness.paths import load_path
 from benchmark.harness.refcheck import (
     bucket_capacity,
     file_numbers,
@@ -24,16 +25,12 @@ from benchmark.harness.refcheck import (
 )
 from benchmark.harness.scenes import make_pool
 from benchmark.harness.trace import profile_block
-from benchmark.harness.wraps import (
-    capture_stage1,
-    kernel_spans,
-    kernel_work,
-    roofline_kernels,
-)
+from benchmark.harness.wraps import kernel_spans, kernel_work, roofline_kernels
 from benchmark.traffic.cli_loop import check_paths
 
 
 def run(cell, ctx: loop.Ctx) -> dict:
+    knn_path = load_path(cell)
     from buildingsegment_tpu_torch import pipeline
     from buildingsegment_tpu_torch.config import PipelineConfig
     from buildingsegment_tpu_torch.io.ply import write_ply
@@ -68,7 +65,7 @@ def run(cell, ctx: loop.Ctx) -> dict:
     stage1 = {}
     for b in range(n_batches):
         cap = []
-        with capture_stage1(cap):
+        with knn_path.capture(cap):
             js, _outs = batch(b)
         for j, s1 in zip(js, cap):
             if j in picked:
