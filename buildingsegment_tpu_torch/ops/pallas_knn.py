@@ -26,6 +26,12 @@ so the counterpart is easy to find).  Three parts:
 3. :func:`_finish`: empty slots and masked rows become self, self is
    prepended.
 
+:func:`knn_pallas` puts a span (``profiling.annotate``) around part 1,
+``knn.prepare``, and around the #14 launch, ``knn.exact``; with
+``tiles`` it hands back, on the device, the candidate tiles the query
+tiles listed (Σ ``counts``), for its caller to read after its
+synchronize.
+
 Not ported: the opt-in VMEM-resident kernel variant (``_kernel_resident``,
 ``BST_KNN_RESIDENT``) computes the same function and the tests hold the
 plain version against it; ``static_rounds``, ``max_visits`` and the
@@ -47,6 +53,7 @@ from buildingsegment_tpu_torch.ops.knn import (
     order_key,
     split_key,
 )
+from buildingsegment_tpu_torch.profiling import annotate
 
 __all__ = ["knn_pallas", "knn_exact", "knn_exact_reference"]
 
@@ -205,6 +212,9 @@ def knn_pallas(
     positions: torch.Tensor,
     mask: torch.Tensor,
     k: int,
+    *,
+    timings: Optional[dict] = None,
+    tiles: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN graph of a (best Morton-sorted) cloud.
 
@@ -213,12 +223,22 @@ def knn_pallas(
             halving each (down to 8) until it divides N.
         mask: bool[N].
         k: neighbours INCLUDING self at slot 0.
+        timings: receives the spans ``knn.prepare`` (seeds, bound and
+            tile lists) and ``knn.exact`` (the #14 launch).
+        tiles: receives ``listed``, an int64 scalar on the device: the
+            candidate tiles listed over every query tile (Σ ``counts``,
+            the most #14 may visit), and ``query_tiles``, an int.
 
     Returns (indices int32[N, k], squared distances f32[N, k]): slot 0 is
     self, then ascending by (d², index); empty slots are self at 0.
     """
-    cols, seed_d, seed_i, visit, visit_d2, counts, qt, ct, w_excl = _prepare(
-        positions, mask, k)
-    best_d, best_i = knn_exact(cols, seed_d, seed_i, visit, visit_d2, counts,
-                               qt=qt, ct=ct, w_excl=w_excl)
+    with annotate("knn.prepare", timings):
+        (cols, seed_d, seed_i, visit, visit_d2, counts, qt, ct,
+         w_excl) = _prepare(positions, mask, k)
+    if tiles is not None:
+        tiles["listed"] = counts.sum(dtype=torch.int64)
+        tiles["query_tiles"] = counts.shape[0]
+    with annotate("knn.exact", timings):
+        best_d, best_i = knn_exact(cols, seed_d, seed_i, visit, visit_d2,
+                                   counts, qt=qt, ct=ct, w_excl=w_excl)
     return _finish(best_d, best_i, mask)

@@ -24,7 +24,10 @@ Every ``knn_method`` runs:
 * ``"brute"`` — what ``"auto"`` resolves to at 65,536 points or fewer —
   and ``"pallas"``: the exact-kNN path (:func:`_classic_pipeline`),
   exact kNN graph → gather normals → graph propagation, in the input
-  order; "pallas" computes the kNN on kernel #14.
+  order; "pallas" computes the kNN on kernel #14, its stage 1 split into
+  the spans ``knn.prepare``, ``knn.exact`` and ``knn.unsort``, and
+  reports the candidate tiles its query tiles listed
+  (``diagnostics["knn_tiles_listed"]`` over ``["knn_query_tiles"]``).
 
 ``segment_files`` is the multi-scan pipeline (BASELINE config 5): a
 reader thread prefetches scans, the main thread runs the device
@@ -109,8 +112,11 @@ class PipelineOutput:
       ``upload.sync`` (the copy's wait) — the upload's parts;
     * ``stage1``, ``segmentation``, ``unsort`` — the device stages, each
       ending in a synchronize; ``knn`` and ``normals`` inside ``stage1``
-      on the exact-kNN paths; ``stage1.cells`` inside ``stage1`` on the
-      window path when it measures the spacing hint (the read of the
+      on the exact-kNN paths, and on "pallas" ``knn.prepare`` (#14's
+      seeds, bound and tile lists), ``knn.exact`` (the #14 launch) and
+      ``knn.unsort`` (the lists scattered back to the input order)
+      inside ``knn``; ``stage1.cells`` inside ``stage1`` on the window
+      path when it measures the spacing hint (the read of the
       occupied-cell count, after the synchronize);
     * the solve's spans inside ``segmentation``: ``mg.seed``,
       ``mg.refine``, ``mg.finalize`` (every multigrid level),
@@ -128,7 +134,9 @@ class PipelineOutput:
     The benchmark (``benchmark/metrics/``) reads ``read_ply``,
     ``write_ply``, ``host_to_device``, ``upload.copy``, ``upload.sync``,
     ``upload.hints``, ``stage1``, ``segmentation``, ``seg.sync``,
-    ``wait.reader`` and ``render``, and the ``host_syncs`` counter.
+    ``wait.reader`` and ``render``, the ``host_syncs`` and ``num_sweeps``
+    counters, and ``diagnostics["knn_tiles_listed"]`` over
+    ``["knn_query_tiles"]``.
     """
 
     cloud: HostPointCloud          # shifted positions + label colors
@@ -143,7 +151,9 @@ class PipelineOutput:
     host_syncs: int = 0
     # the solve's diagnostics, and ``occupied_cells_512mm``: the occupied
     # 512 mm cells that the spacing hint was measured from (0: the hint
-    # was the configuration's, or the path reads none)
+    # was the configuration's, or the path reads none); on "pallas"
+    # ``knn_tiles_listed``, the candidate tiles #14's query tiles listed,
+    # and ``knn_query_tiles``, their number
     diagnostics: dict = dataclasses.field(default_factory=dict)
     # the run's shifted positions int32[C, 3] in input order (padding rows
     # hold PAD_COORD) and mask bool[C], on the run's device: the raster
@@ -180,7 +190,7 @@ def run_device_pipeline(
     stats_rank_mode=None,
     morton_small: bool = False,
     spacing_hint_mm=None,
-    density: Optional[dict] = None,
+    counters: Optional[dict] = None,
     timings: Optional[dict] = None,
 ):
     """The on-device part: shift → kNN → normals → segmentation.
@@ -194,12 +204,15 @@ def run_device_pipeline(
     stages' spans (``PipelineOutput``); ``stage1``, ``segmentation`` and
     ``unsort`` each end in a device synchronize.
 
-    ``spacing_hint_mm=None`` runs without a hint, unless ``density`` is
-    given: the window path then measures the hint as
-    ``estimate_spacing_mm`` does, from the occupied 512 mm cells that
-    stage 1's Morton order counts on the device, read after stage 1's
-    synchronize; ``density`` receives that count as
-    ``occupied_cells_512mm``.  An empty cloud gets no hint.
+    ``counters``, when given, receives the run's counters read on the
+    host (``PipelineOutput.diagnostics``).  ``spacing_hint_mm=None`` runs
+    without a hint, unless ``counters`` is given: the window path then
+    measures the hint as ``estimate_spacing_mm`` does, from the occupied
+    512 mm cells that stage 1's Morton order counts on the device, read
+    after stage 1's synchronize, and ``counters`` receives that count as
+    ``occupied_cells_512mm``.  An empty cloud gets no hint.  The
+    exact-kNN paths read no hint; on "pallas" ``counters`` receives
+    ``knn_tiles_listed`` and ``knn_query_tiles``.
     """
     timings = {} if timings is None else timings
     if knn_method in ("brute", "pallas"):
@@ -210,7 +223,8 @@ def run_device_pipeline(
             th_point_count=th_point_count, max_planes=max_planes,
             max_sweeps=max_sweeps, signed_normals=signed_normals,
             knn_method=knn_method, th_seed_curvature=th_seed_curvature,
-            convergence_tol=convergence_tol, timings=timings,
+            convergence_tol=convergence_tol, counters=counters,
+            timings=timings,
         )
     if knn_method != "window":
         raise ValueError(f"knn_method={knn_method!r}")
@@ -218,7 +232,7 @@ def run_device_pipeline(
         seg_group > 1 and positions.shape[0] % (seg_group ** seg_levels) == 0
     )
     dev = positions.device
-    measure = density is not None and spacing_hint_mm is None
+    measure = counters is not None and spacing_hint_mm is None
     with annotate("stage1", timings):
         shifted, lo, _hi = shift_to_origin(positions, mask)
         spos, smask, order = morton_sort(shifted, mask, morton_small)
@@ -243,7 +257,7 @@ def run_device_pipeline(
             with annotate("stage1.cells", timings):
                 live, occupied = counts.tolist()
             spacing_hint_mm = _spacing_hint(live, occupied)
-            density["occupied_cells_512mm"] = occupied
+            counters["occupied_cells_512mm"] = occupied
 
     # fine-level edge gate: widened past 2·thickness on sparse scans
     # when the density hint is proven
@@ -301,12 +315,22 @@ def _spacing_hint(live: int, occupied: int) -> Optional[float]:
 def _classic_pipeline(
     positions, mask, *, k_search, knn_k, normal_radius, normal_max_nn,
     th_thickness, th_normal_cos, th_point_count, max_planes, max_sweeps,
-    signed_normals, knn_method, th_seed_curvature, convergence_tol, timings,
+    signed_normals, knn_method, th_seed_curvature, convergence_tol,
+    counters, timings,
 ):
     """The exact-kNN paths ("brute", "pallas"): shift → exact kNN graph
     (k_search wide) → gather normals → graph propagation over the first
-    ``knn_k`` slots, all in the input order."""
+    ``knn_k`` slots, all in the input order.
+
+    Spans: ``stage1`` ⊃ ``knn`` (⊃ ``knn.prepare``, ``knn.exact``,
+    ``knn.unsort`` on "pallas") and ``normals``, then ``segmentation``.
+    On "pallas" ``counters`` (when given) receives ``knn_tiles_listed`` —
+    Σ over the query tiles of the candidate tiles #14 may visit, read
+    once after the synchronize that closes ``knn`` — and
+    ``knn_query_tiles``.  The graph solve's sweeps are
+    ``SegmentationResult.num_sweeps``."""
     dev = positions.device
+    tiles = {} if counters is not None and knn_method == "pallas" else None
     with annotate("stage1", timings):
         with annotate("knn", timings):
             shifted, lo, _hi = shift_to_origin(positions, mask)
@@ -317,14 +341,19 @@ def _classic_pipeline(
                 # frame
                 order = morton_argsort(shifted, mask)
                 s_idx, s_d = knn_pallas(shifted[order], mask[order],
-                                        k=k_search)
-                neigh_idx = torch.empty_like(s_idx)
-                neigh_d = torch.empty_like(s_d)
-                neigh_idx[order] = order[s_idx.long()].to(torch.int32)
-                neigh_d[order] = s_d
+                                        k=k_search, timings=timings,
+                                        tiles=tiles)
+                with annotate("knn.unsort", timings):
+                    neigh_idx = torch.empty_like(s_idx)
+                    neigh_d = torch.empty_like(s_d)
+                    neigh_idx[order] = order[s_idx.long()].to(torch.int32)
+                    neigh_d[order] = s_d
             else:
                 neigh_idx, neigh_d = knn(shifted, mask, k=k_search)
             synchronize(dev)
+            if tiles is not None:
+                counters["knn_tiles_listed"] = int(tiles["listed"])
+                counters["knn_query_tiles"] = tiles["query_tiles"]
         with annotate("normals", timings):
             normals, curv = estimate_normals(
                 shifted, mask, neigh_idx, neigh_d, radius=normal_radius,
@@ -393,8 +422,8 @@ def _run_device(batch: PointBatch, config: PipelineConfig,
                 signed_normals: bool, timings: dict):
     """``run_device_pipeline`` on the batch under ``config``, measuring
     the spacing hint when ``config`` sets none; returns (shifted
-    positions, SegmentationResult, occupied 512 mm cells or 0)."""
-    density = {}
+    positions, SegmentationResult, the run's counters)."""
+    counters = {}
     shifted, _lo, seg = run_device_pipeline(
         batch.positions, batch.mask,
         k_search=max(config.knn_k_pad, config.normal_max_nn),
@@ -421,15 +450,16 @@ def _run_device(batch: PointBatch, config: PipelineConfig,
         stats_rank_mode=config.stats_rank_mode,
         morton_small=config.morton_small,
         spacing_hint_mm=config.spacing_hint_mm,
-        density=density,
+        counters=counters,
         timings=timings,
     )
-    return shifted, seg, density.get("occupied_cells_512mm", 0)
+    return shifted, seg, counters
 
 
-def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, occupied,
+def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, counters,
                    config, timings, t0) -> PipelineOutput:
-    """Fetch the labels and the plane table, colorize; ``timings["total"]``
+    """Fetch the labels and the plane table, colorize; ``counters`` (from
+    ``_run_device``) join the solve's diagnostics; ``timings["total"]``
     runs from ``t0``."""
     n = cloud.count
     num_planes = seg.num_planes
@@ -471,7 +501,8 @@ def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, occupied,
             "labels_over_merge_cap": int(diag[1]),
             "planes_over_capacity": int(diag[2]),
             "hit_max_sweeps": int(diag[3]),
-            "occupied_cells_512mm": occupied,
+            "occupied_cells_512mm": 0,
+            **counters,
         },
         device_shifted=shifted,
         device_mask=mask,
@@ -494,10 +525,10 @@ def segment_cloud(
         with annotate("dedup", timings):
             cloud = _maybe_dedup(cloud, config)
         batch, shifted_h, lo_h, config = _upload(cloud, config, dev, timings)
-    shifted, seg, occupied = _run_device(batch, config, signed_normals,
+    shifted, seg, counters = _run_device(batch, config, signed_normals,
                                          timings)
     return _finish_output(cloud, shifted_h, lo_h, shifted, batch.mask, seg,
-                          occupied, config, timings, t0)
+                          counters, config, timings, t0)
 
 
 def dump_stages(
@@ -665,11 +696,11 @@ def segment_files(
             if i + 2 < len(input_paths):
                 pending.append(rpool.submit(load_scan, input_paths[i + 2]))
             t0 = time.perf_counter()
-            shifted, seg, occupied = _run_device(batch, cfg, signed_normals,
+            shifted, seg, counters = _run_device(batch, cfg, signed_normals,
                                                  timings)
             writes.append(wpool.submit(
                 _write_scan, cloud, shifted_h, lo_h, shifted, batch.mask,
-                seg, occupied, cfg, timings, t0, in_path, out_path,
+                seg, counters, cfg, timings, t0, in_path, out_path,
                 render_dir,
             ))
         outs = []
@@ -682,7 +713,7 @@ def segment_files(
         return outs
 
 
-def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, occupied, cfg,
+def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, counters, cfg,
                 timings, t0, in_path, out_path, render_dir) -> PipelineOutput:
     """Writer thread: queue the raster (it reuses the positions on the
     device), fetch and colorize, write the labeled PLY, then fetch the
@@ -693,7 +724,7 @@ def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, occupied, cfg,
         with annotate("render.dispatch", timings):
             rasters = dispatch_ortho(shifted_h, shifted, mask, cfg)
     out = _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg,
-                         occupied, cfg, timings, t0)
+                         counters, cfg, timings, t0)
     with annotate("write_ply", timings):
         write_ply(out.cloud, out_path, position_scale=cfg.output_scale,
                   ascii=not cfg.output_binary)

@@ -101,5 +101,15 @@ def test_segment_cloud_matches_jax(scene, method, monkeypatch):
     assert b.num_sweeps > 0 and "knn" in b.timings
     np.testing.assert_array_equal(b.plane_counts, a.plane_counts)
     np.testing.assert_allclose(b.plane_normals, a.plane_normals, atol=1e-4)
-    # the exact-kNN paths read no spacing hint, so none is measured
+    # the exact-kNN paths read no spacing hint, so none is measured;
+    # "pallas" reports the candidate tiles its 72 query tiles of 128 rows
+    # listed, each of 9 tiles of 1,024
+    tiles = {k: b.diagnostics.pop(k) for k in ("knn_tiles_listed",
+                                                "knn_query_tiles")
+             if k in b.diagnostics}
     assert b.diagnostics == dict(a.diagnostics, occupied_cells_512mm=0)
+    if method == "pallas":
+        assert tiles["knn_query_tiles"] == 72
+        assert 72 <= tiles["knn_tiles_listed"] <= 72 * 9
+    else:
+        assert tiles == {}
