@@ -52,6 +52,8 @@ __all__ = [
     "segment_sums_cuda",
     "segment_order_cuda",
     "segment_sort_plan",
+    "graph_hop_cuda",
+    "graph_union_cuda",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -60,7 +62,7 @@ _BUILD = os.path.join(_HERE, "_build")
 _SOURCES = (
     "label_sweep.cu", "compact_sweep.cu", "stats_sweep.cu", "seed_sweep.cu",
     "refine_sweep.cu", "segsum.cu", "adopt.cu", "knn_exact.cu",
-    "stats_mxu.cu", "segment_sum.cu", "segment_sort.cu",
+    "stats_mxu.cu", "segment_sum.cu", "segment_sort.cu", "graph_hop.cu",
 )
 _HEADERS = ("sweep_common.cuh", "block_fold.cuh", "select_rank.cuh",
             "cp_async.cuh", "segment_sort.cuh")
@@ -76,6 +78,7 @@ launch_counts = {
     "table_lookup": 0, "plane_adopt": 0, "knn_exact": 0, "plane_sums": 0,
     "stats_mxu": 0, "seed_mxu": 0, "table_lookup_cols": 0,
     "table_lookup_pair": 0, "segment_sums": 0, "segment_order": 0,
+    "graph_hop": 0, "graph_union": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -196,12 +199,15 @@ def _bind() -> None:
     lib.bst_segment_sums.argtypes = ([_P, _I, _P, _P] + [_I] * 5
                                      + [_P, _Z, _P, _P])
     lib.bst_segment_order.argtypes = [_P] + [_I] * 5 + [_P, _Z, _P, _P, _P]
+    lib.bst_graph_hop.argtypes = [_P] * 6 + [_I] * 3 + [_F, _F, _I, _P]
+    lib.bst_graph_union.argtypes = [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P]
     for fn in (lib.bst_stats_sweep, lib.bst_seed_sweep, lib.bst_refine_sweep,
                lib.bst_paymom, lib.bst_lookup, lib.bst_adopt,
                lib.bst_knn_exact, lib.bst_plane_sums, lib.bst_stats_mxu,
                lib.bst_seed_mxu, lib.bst_lookup_cols, lib.bst_lookup_pair,
                lib.bst_segment_init, lib.bst_segment_sums,
-               lib.bst_segment_order):
+               lib.bst_segment_order, lib.bst_graph_hop,
+               lib.bst_graph_union):
         fn.restype = _I
     _lib = lib
 
@@ -852,3 +858,70 @@ def knn_exact_cuda(pos, seed_d, seed_i, visit, visit_d2, counts, *, qt, ct,
     _check(lib, err, "knn_exact")
     launch_counts["knn_exact"] += 1
     return out_d, out_i
+
+
+#: most non-self kNN slots the graph solve's edge walk takes
+#: (kGraphMaxSlots in csrc/graph_hop.cu): a point's lanes are a half-warp
+#: up to 16 slots, a whole warp up to 32
+GRAPH_MAX_SLOTS = 32
+
+
+def _graph_walk_inputs(label, nb, nb_valid, models):
+    """The checks both graph wrappers make; returns (label, nb, nb_valid,
+    models) ready for the kernel."""
+    n = label.shape[0]
+    label = _cuda_tensor(label, torch.int32, (n,), "label")
+    kk = nb.shape[1] if nb.dim() == 2 else 0
+    if not 1 <= kk <= GRAPH_MAX_SLOTS:
+        raise ValueError(f"graph walk: nb must be [n, 1..{GRAPH_MAX_SLOTS}]"
+                         f", got {tuple(nb.shape)}")
+    nb = _cuda_tensor(nb, torch.int32, (n, kk), "nb")
+    nb_valid = _cuda_tensor(nb_valid, torch.bool, (n, kk), "nb_valid")
+    models = _cuda_tensor(models, torch.float32, (models.shape[0], 8),
+                          "models")
+    if models.data_ptr() % 16:  # rows read as two float4s
+        models = models.clone()
+    return label, nb, nb_valid, models
+
+
+def graph_hop_cuda(label, nb, nb_valid, points, models, *, th_thickness,
+                   th_normal_cos, signed=False):
+    """CUDA graph hop (csrc/graph_hop.cu): one walk of every point's kNN
+    edges, an atomic only where a label falls; see
+    :func:`buildingsegment_tpu_torch.ops.graph_hop.graph_hop`."""
+    label, nb, nb_valid, models = _graph_walk_inputs(label, nb, nb_valid,
+                                                     models)
+    n, kk = nb.shape
+    points = _cuda_tensor(points, torch.float32, (n, 8), "points")
+    if points.data_ptr() % 16:  # rows read as two float4s
+        points = points.clone()
+    out = torch.empty_like(label)
+    lib = _load()
+    err = lib.bst_graph_hop(
+        label.data_ptr(), nb.data_ptr(), nb_valid.data_ptr(),
+        points.data_ptr(), models.data_ptr(), out.data_ptr(), n, kk,
+        models.shape[0], th_thickness, th_normal_cos, int(signed),
+        _stream(out))
+    _check(lib, err, "graph_hop")
+    launch_counts["graph_hop"] += 1
+    return out
+
+
+def graph_union_cuda(label, nb, nb_valid, models, *, th_thickness,
+                     th_normal_cos, signed=False):
+    """CUDA union hooks of the graph solve (csrc/graph_hop.cu, the hop's
+    edge walk); see
+    :func:`buildingsegment_tpu_torch.ops.graph_hop.graph_union_hooks`."""
+    label, nb, nb_valid, models = _graph_walk_inputs(label, nb, nb_valid,
+                                                     models)
+    n, kk = nb.shape
+    ng = models.shape[0]
+    parent = torch.empty(ng, dtype=torch.int32, device=label.device)
+    lib = _load()
+    err = lib.bst_graph_union(
+        label.data_ptr(), nb.data_ptr(), nb_valid.data_ptr(),
+        models.data_ptr(), parent.data_ptr(), n, kk, ng, th_thickness,
+        th_normal_cos, int(signed), _stream(parent))
+    _check(lib, err, "graph_union")
+    launch_counts["graph_union"] += 1
+    return parent

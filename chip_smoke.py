@@ -67,8 +67,8 @@ Phases, in order; the first failure exits non-zero:
 7. ``DEFAULT_CONFIG`` on the same house at 105 mm spacing (60,914
    points): "auto" must resolve to "brute" and give 18 planes at truth
    agreement ≥ 0.6239 (JAX on the CPU: 0.633894 − 0.01), plus three
-   runs of stage times; every segment-sum call of its graph solve held
-   and timed as in step 4;
+   runs of stage times; every segment-sum, hop and union call of its
+   graph solve held and timed as in step 4;
 8. the BASELINE config-2 shape: ``knn_pallas(k=16)`` on the house at
    25.4 mm spacing (1,046,391 points, capacity 1,046,528), Morton-sorted;
    the whole call and the kernel are timed, the kernel beside its bound
@@ -168,6 +168,15 @@ Phases, in order; the first failure exits non-zero:
    timed as in step 4.  Step 4 also gives the pair lookup's card ms
    beside an empty kernel's (the launch floor).
 
+18. the graph solve's edge walk (``csrc/graph_hop.cu``, the hop and the
+   union hook) at the exact cell's largest footprint (15 × 11 m, ~1.64M
+   points, "pallas" through ``segment_file``): every call held bit for
+   bit against its plain version, timed beside its bytes bound and the
+   plain version (its largest call and a pass of all its calls), and the
+   launch counts (the hop ``GRAPH_HOPS`` times a sweep, the union once a
+   sweep); steps 4 and 7 hold and time it on the pallas and auto (brute)
+   paths.
+
 The last three lines of stdout are the card line, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``.
 """
@@ -228,6 +237,8 @@ KERNELS = {
     "seed_mxu": ("stats_mxu.cu", "ops/stats_mxu.py:262", 50, 1),
     "table_lookup_cols": ("segsum.cu", "ops/segsum.py:222", 50, 5),
     "segment_sums": ("segment_sum.cu", "seg/region_grow.py:453", 20, 3),
+    "graph_hop": ("graph_hop.cu", "seg/region_grow.py:528", 50, 5),
+    "graph_union": ("graph_hop.cu", "seg/region_grow.py:653", 50, 5),
 }
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -235,7 +246,7 @@ PATH_KERNELS = {
                 "refine_sweep", "payload_moment_sums", "table_lookup_pair",
                 "plane_adopt", "segment_sums"),
     "single_level": ("label_sweep", "compact_sweep", "segment_sums"),
-    "pallas": ("knn_exact", "segment_sums"),
+    "pallas": ("knn_exact", "segment_sums", "graph_hop", "graph_union"),
 }
 # the block-form variant path: #15 and #16 in place of #3 and #4
 PATH_KERNELS["mxu"] = ("stats_mxu", "seed_mxu") + PATH_KERNELS["default"][2:]
@@ -255,7 +266,14 @@ ROWS_ARG = {"stats_sweep": 1, "seed_sweep": 2, "label_sweep": 4,
             "table_lookup": 0, "plane_adopt": 1, "knn_exact": 1,
             "plane_sums": 0, "stats_mxu": 1, "seed_mxu": 2,
             "table_lookup_cols": 0, "table_lookup_pair": 0,
-            "segment_sums": 0}
+            "segment_sums": 0, "graph_hop": 0, "graph_union": 0}
+# the graph solve's edge walk: the hop and the union hook
+GRAPH_WALKS = ("graph_hop", "graph_union")
+# the exact cell's largest footprint (benchmark/configs/
+# tls_house_25mm_exact.json, seed 0): the graph walk's largest shape
+EXACT_LARGEST_SCENE = dict(seed=0, spacing_mm=25.0, noise_mm=8.0,
+                           width_mm=15000.0, depth_mm=11000.0,
+                           wall_h_mm=7000.0, ridge_h_mm=9500.0)
 # the seeded table of the #10 check: f32[cap, LOOKUP_COLS]
 LOOKUP_COLS = 3
 # balls of #16's full walk, on every sixth row of its held inputs: the
@@ -664,6 +682,27 @@ def work(torch, name, args, kw, out):
         note = (f"; candidate tiles: {listed} listed, {needed} under the "
                 f"final tau; {pairs} pairs, {pairs / max(valid_q, 1):.1f} "
                 f"a valid query")
+    elif name in GRAPH_WALKS:
+        label, nb, nb_valid, models = (*args[:3], args[-1])
+        ng = models.shape[0]
+        n_live = int(torch.unique(label[label < ng]).numel())
+        lab_t = label[nb.long()]
+        differ = nb_valid & (lab_t != label[:, None])
+        if name == "graph_union":
+            differ &= (label[:, None] < ng) & (lab_t < ng)
+        edges = int(differ.sum())
+        # read once: labels, ids, validity bytes, each live label's model
+        # (24 B) and, for the hop, each point's position and normal (24
+        # B); written: out or parent.  Per valid edge whose two labels
+        # differ one gate (17: 9 for the band, 6 for the cos, 2 compares),
+        # two for the union
+        moved = (label.numel() * 4 + nb.numel() * 4 + nb_valid.numel()
+                 + n_live * 24 + out.numel() * 4)
+        if name == "graph_hop":
+            moved += label.numel() * 24
+        ops = edges * (17 if name == "graph_hop" else 34)
+        note = (f"; {int(nb_valid.sum())} valid edges, {edges} with two "
+                f"labels, {n_live} live labels")
     else:  # plane_adopt
         payload, holes, table = args[0], args[1], args[2]
         nh = int(holes.sum())
@@ -1756,15 +1795,76 @@ def sharded_phase(torch, np, card):
     return rec
 
 
+def walk_pass_ms(torch, fn, calls, reps):
+    """CUDA-event ms a call over ``reps`` passes of every captured call."""
+    def one_pass():
+        for _n, args, kw in calls:
+            fn(*args, **kw)
+    return cuda_ms(torch, one_pass, reps) / len(calls)
+
+
+def graph_phase(torch, hooks, cuda_fns, card, results):
+    """The graph solve's edge walk at the exact cell's largest footprint
+    (``EXACT_LARGEST_SCENE``, ~1.64M points, "pallas" through
+    ``segment_file``): every hop and union of the solve held bit for bit
+    against its plain version, the first (largest) call timed beside its
+    bytes bound and the plain version, and a pass of all the calls timed
+    for both; the measured run launches the hop ``GRAPH_HOPS`` times a
+    sweep and the union once a sweep.  Returns the phase's record."""
+    from buildingsegment_tpu_torch import kernels
+    from buildingsegment_tpu_torch.pipeline import (
+        HostPointCloud, PipelineConfig, segment_file, write_ply,
+    )
+    from buildingsegment_tpu_torch.seg.region_grow import GRAPH_HOPS
+    from buildingsegment_tpu_torch.utils import make_building_cloud
+
+    pts, _ = make_building_cloud(**EXACT_LARGEST_SCENE)
+    cfg = PipelineConfig(knn_method="pallas")
+    seen = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "exact_largest.ply")
+        dst = os.path.join(tmp, "labeled.ply")
+        write_ply(HostPointCloud(positions=pts), src, position_scale=0.001)
+        with spying(torch, {k: hooks[k] for k in GRAPH_WALKS}, seen):
+            segment_file(src, dst, cfg, device="cuda")
+        kernels.reset_launch_counts()
+        out = segment_file(src, dst, cfg, device="cuda")
+    launched = {k: kernels.launch_counts[k] for k in GRAPH_WALKS}
+    want = {"graph_hop": GRAPH_HOPS * out.num_sweeps,
+            "graph_union": out.num_sweeps}
+    if launched != want:
+        fail(f"exact largest: launches {launched}, expected {want}")
+    record = {"points": len(pts), "num_sweeps": out.num_sweeps,
+              "launches": launched, "card": card}
+    for name in GRAPH_WALKS:
+        calls = seen.pop(name)
+        row = hold_kernel(torch, name, "exact largest", calls, cuda_fns[name],
+                          hooks[name][2], card)
+        results[("exact_largest", name)] = row
+        row["pass_ms"] = walk_pass_ms(torch, cuda_fns[name], calls, 20)
+        row["plain_pass_ms"] = walk_pass_ms(torch, hooks[name][2], calls, 3)
+        print(f"{name} (exact largest, {len(calls)} calls): a call of a "
+              f"pass {row['pass_ms']:.4f} ms vs plain "
+              f"{row['plain_pass_ms']:.4f} ms ({card})")
+        record[name] = {k: row[k] for k in ("rows", "ms", "plain_ms",
+                                            "bound_ms", "pass_ms",
+                                            "plain_pass_ms")}
+        del calls
+    print(f"exact largest ({len(pts)} points): {out.num_sweeps} sweeps, "
+          f"launches {launched}")
+    return record
+
+
 def kernel_hooks():
     """(the module attribute each solver calls for each kernel wrapper and
     the kernel's plain version, each kernel's CUDA wrapper).  The segment
     sums have six callers in two modules: their hook is the CUDA wrapper
-    itself, which ``ops.segsum.segment_sums`` calls for card tensors."""
+    itself, which ``ops.segsum.segment_sums`` calls for card tensors, as
+    are the graph walk's (``ops.graph_hop``)."""
     from buildingsegment_tpu_torch import kernels
     from buildingsegment_tpu_torch.ops import (
-        adopt, compact_sweep, pallas_knn, segsum, stats_mxu, stats_sweep,
-        window_sweep,
+        adopt, compact_sweep, graph_hop, pallas_knn, segsum, stats_mxu,
+        stats_sweep, window_sweep,
     )
     from buildingsegment_tpu_torch.raster import ortho
     from buildingsegment_tpu_torch.seg import coarse, region_grow
@@ -1788,6 +1888,10 @@ def kernel_hooks():
                               segsum.table_lookup_pair_reference),
         "segment_sums": (kernels, "segment_sums_cuda",
                          segsum.segment_sums_reference),
+        "graph_hop": (kernels, "graph_hop_cuda",
+                      graph_hop.graph_hop_reference),
+        "graph_union": (kernels, "graph_union_cuda",
+                        graph_hop.graph_union_reference),
         "plane_adopt": (coarse, "plane_adopt", adopt.plane_adopt_reference),
         "knn_exact": (pallas_knn, "knn_exact",
                       pallas_knn.knn_exact_reference),
@@ -1813,6 +1917,8 @@ def kernel_hooks():
         "table_lookup_cols": kernels.table_lookup_cols_cuda,
         "table_lookup_pair": kernels.table_lookup_pair_cuda,
         "segment_sums": kernels.segment_sums_cuda,
+        "graph_hop": kernels.graph_hop_cuda,
+        "graph_union": kernels.graph_union_cuda,
     }
     return hooks, cuda_fns
 
@@ -2015,22 +2121,25 @@ def main():
             fail(f"auto resolved to {method!r} at {len(apts)} points")
         asrc = os.path.join(tmp, "auto.ply")
         write_ply(HostPointCloud(positions=apts), asrc, position_scale=0.001)
-        # the graph solve's sums: every call held and timed
+        # the graph solve's sums and edge walk: every call held and timed
         seen = {}
-        with spying(torch, {"segment_sums": hooks["segment_sums"]}, seen):
+        brute = ("segment_sums",) + GRAPH_WALKS
+        with spying(torch, {k: hooks[k] for k in brute}, seen):
             segment_file(asrc, dst, DEFAULT_CONFIG, device="cuda")
-        if "segment_sums" not in seen:
-            fail("auto (brute) path did not reach segment_sums")
-        results[("auto", "segment_sums")] = hold_kernel(
-            torch, "segment_sums", "auto (brute)", seen["segment_sums"],
-            cuda_fns["segment_sums"], hooks["segment_sums"][2], card)
+        for name in brute:
+            if name not in seen:
+                fail(f"auto (brute) path did not reach {name}")
+            results[("auto", name)] = hold_kernel(
+                torch, name, "auto (brute)", seen[name], cuda_fns[name],
+                hooks[name][2], card)
         seg_passes["auto"] = segment_sums_record(
             torch, "auto (brute) path", seen.pop("segment_sums"), card)
         kernels.reset_launch_counts()
         out = segment_file(asrc, dst, DEFAULT_CONFIG, device="cuda")
         launches["auto"] = dict(kernels.launch_counts)
-        if not launches["auto"]["segment_sums"]:
-            fail("auto (brute) path never launched segment_sums")
+        for name in brute:
+            if not launches["auto"][name]:
+                fail(f"auto (brute) path never launched {name}")
         check_output_ply(np, read_ply, dst, out, len(apts))
         bij = bij_agreement(atruth, out.plane_idx)
         planes, least = EXPECT["auto"]
@@ -2134,6 +2243,9 @@ def main():
 
     del batch, shifted, order, spos, smask, calls8, args, got_d, got_i
 
+    # 18. the graph walk at the exact cell's largest footprint
+    graph_walk = graph_phase(torch, hooks, cuda_fns, card, results)
+
     # 10. BASELINE config 5: the multi-scan render path at full size
     multiscan, labels0 = multiscan_phase(torch, np, hooks, cuda_fns, card,
                                          results, launches, cols_calls)
@@ -2193,6 +2305,7 @@ def main():
                       "stats_sweep_normals_window": normals_row,
                       "native_codec": native, "sharded": sharded,
                       "segment_sums_passes": seg_passes,
+                      "graph_walk": graph_walk,
                       "launch_floor_card_ms": floor_ms}))
     rows = []
     for name, (src_file, replaces, _r, _pr) in KERNELS.items():

@@ -24,6 +24,10 @@ from buildingsegment_tpu_torch.ops.compact_sweep import (
     compact_sweep_reference,
 )
 from buildingsegment_tpu_torch.ops.fused import knn_normals_window_sorted
+from buildingsegment_tpu_torch.ops.graph_hop import (
+    graph_hop_reference,
+    graph_union_reference,
+)
 from buildingsegment_tpu_torch.ops.knn import knn
 from buildingsegment_tpu_torch.ops.normals import canonicalize_normals
 from buildingsegment_tpu_torch.ops.pallas_knn import (
@@ -54,7 +58,10 @@ from buildingsegment_tpu_torch.pipeline import (
     HostPointCloud,
     PipelineConfig,
     segment_cloud,
+    segment_file,
+    write_ply,
 )
+from buildingsegment_tpu_torch.seg.region_grow import GRAPH_HOPS
 from buildingsegment_tpu_torch.utils import bij_agreement, make_building_cloud
 
 pytestmark = pytest.mark.cuda
@@ -298,7 +305,8 @@ def test_kernel_wrappers_reject_bad_inputs(scene):
 
 
 _SLICE1 = ("label_sweep", "compact_sweep", "segment_sums")
-_PALLAS = ("knn_exact", "segment_sums")
+_GRAPH = ("graph_hop", "graph_union", "segment_sums")
+_PALLAS = ("knn_exact",) + _GRAPH
 _MULTIGRID = ("stats_sweep", "seed_sweep", "label_sweep", "refine_sweep",
               "payload_moment_sums", "table_lookup_pair", "plane_adopt",
               "segment_sums")
@@ -313,7 +321,7 @@ _MXU = ("stats_mxu", "seed_mxu") + _MULTIGRID[2:]
         (PipelineConfig(knn_method="window"), _MULTIGRID),
         (PipelineConfig(knn_method="window", stats_rank_mode="mxu",
                         seg_seed_mode="mxu"), _MXU),
-        (PipelineConfig(knn_method="brute"), ("segment_sums",)),
+        (PipelineConfig(knn_method="brute"), _GRAPH),
         (PipelineConfig(knn_method="pallas"), _PALLAS),
     ],
     ids=["single_level", "default_multigrid", "mxu", "brute", "pallas"],
@@ -1381,3 +1389,85 @@ def test_multigrid_heal_card_matches_cpu(cuda, heal):
     t = struth[oa][valid]
     assert abs(bij_agreement(t, la[valid]) - bij_agreement(t, lb[valid])) \
         < 0.01
+
+
+# the exact cell's largest footprint (benchmark/configs/
+# tls_house_25mm_exact.json): ~1.64M points
+_EXACT_LARGEST = dict(seed=0, spacing_mm=25.0, noise_mm=8.0, width_mm=15000.0,
+                      depth_mm=11000.0, wall_h_mm=7000.0, ridge_h_mm=9500.0)
+_WALKS = {"graph_hop": graph_hop_reference,
+          "graph_union": graph_union_reference}
+
+
+@pytest.mark.parametrize("scene_kw", [_SCENE, _EXACT_LARGEST],
+                         ids=["small", "exact_largest"])
+def test_graph_walk_kernels_match_plain(cuda, monkeypatch, scene_kw):
+    """Every hop and union of an exact-path solve (#14's graph) on the
+    card equals its plain version bit for bit."""
+    calls = {name: [] for name in _WALKS}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls[name].append(([a.clone() for a in args], kw, out.clone()))
+            return out
+        return call
+
+    for name in _WALKS:
+        monkeypatch.setattr(kernels, f"{name}_cuda",
+                            spy(name, getattr(kernels, f"{name}_cuda")))
+    pts, _ = make_building_cloud(**scene_kw)
+    out = segment_cloud(HostPointCloud(positions=pts),
+                        PipelineConfig(knn_method="pallas"), device="cuda")
+    assert len(calls["graph_hop"]) == GRAPH_HOPS * out.num_sweeps
+    assert len(calls["graph_union"]) == out.num_sweeps
+    for name, plain in _WALKS.items():
+        for args, kw, got in calls[name]:
+            assert torch.equal(got, plain(*args, **kw)), name
+    # the hops moved labels and the unions hooked some
+    assert any(not torch.equal(got, args[0])
+               for args, _kw, got in calls["graph_hop"])
+    assert any(bool((got != torch.arange(got.shape[0], device=got.device,
+                                         dtype=got.dtype)).any())
+               for _a, _kw, got in calls["graph_union"])
+
+
+def test_graph_walk_launch_counts(cuda, tmp_path):
+    """An exact-path ``segment_file`` launches the hop GRAPH_HOPS times a
+    sweep and the union once a sweep."""
+    pts, _ = make_building_cloud(**_SCENE)
+    src, dst = str(tmp_path / "in.ply"), str(tmp_path / "out.ply")
+    write_ply(HostPointCloud(positions=pts), src, position_scale=0.001)
+    kernels.reset_launch_counts()
+    out = segment_file(src, dst, PipelineConfig(knn_method="pallas"),
+                       device="cuda")
+    assert out.num_sweeps >= 1
+    assert kernels.launch_counts["graph_hop"] == GRAPH_HOPS * out.num_sweeps
+    assert kernels.launch_counts["graph_union"] == out.num_sweeps
+
+
+def test_graph_walk_wrappers_reject_bad_inputs(cuda):
+    n, kk, ng = 64, 14, 64
+    label = torch.zeros(n, dtype=torch.int32, device=cuda)
+    nb = torch.zeros((n, kk), dtype=torch.int32, device=cuda)
+    valid = torch.zeros((n, kk), dtype=torch.bool, device=cuda)
+    points = torch.zeros((n, 8), dtype=torch.float32, device=cuda)
+    models = torch.zeros((ng, 8), dtype=torch.float32, device=cuda)
+    kw = dict(th_thickness=TH, th_normal_cos=CTH)
+    # the good call runs
+    kernels.graph_hop_cuda(label, nb, valid, points, models, **kw)
+    kernels.graph_union_cuda(label, nb, valid, models, **kw)
+    wide = torch.zeros((n, 33), dtype=torch.int32, device=cuda)
+    for bad in ((label.cpu(), nb, valid, points, models),
+                (label.long(), nb, valid, points, models),
+                (label, nb.long(), valid, points, models),
+                (label, nb, valid.to(torch.uint8), points, models),
+                (label, nb, valid, points.double(), models),
+                (label, wide, valid, points, models)):
+        with pytest.raises(ValueError):
+            kernels.graph_hop_cuda(*bad, **kw)
+        if bad[3] is points:  # the union takes no points
+            with pytest.raises(ValueError):
+                kernels.graph_union_cuda(*bad[:3], bad[4], **kw)
+    with pytest.raises(ValueError):
+        kernels.graph_union_cuda(label, nb, valid, models.double(), **kw)
