@@ -3,22 +3,22 @@
 * ``morton_argsort`` (plain and on the translated ``_DUAL_SHIFT`` order)
   and ``knn_window_sorted`` at w = 50, k = 50: EXACT (integer keys; the
   same f32 distances, ties by slot as ``lax.top_k``).
-* The brute ``knn`` and ``knn_pallas`` (on the CPU: ``_prepare``, the
-  plain version ``knn_exact_reference``, ``_finish``) against JAX's
-  ``knn`` and its Pallas kernel in interpret mode (default and the
-  opt-in resident variant), at k = 16 and k = 50: distances within
-  JAX's oracle tolerance, rtol 1e-6 and atol 0.01 mm²
-  (tests/test_pallas_knn.py) — the two packages center on different
-  means, and JAX's f32 center makes its own coordinates inexact; indices
-  equal except where two candidates at the cut lie within that
-  tolerance; every returned index's recomputed d² equals the returned
-  d² exactly; and against scipy's ``cKDTree`` as well.
-* ``estimate_normals`` on the same graph: normals up to sign within
-  1e-5 on rows whose two smallest eigenvalues are separated (gap ≥ 5% of
-  the largest), curvature within 1e-5 (tests/test_torch_fused.py's rule).
+* The brute ``knn`` against JAX's ``knn`` at k = 16 and k = 50
+  (``_check``, which tests/test_torch_knn_pallas.py also holds
+  ``knn_pallas`` to): distances within JAX's oracle tolerance, rtol 1e-6
+  and atol 0.01 mm² (tests/test_pallas_knn.py) — the two packages center
+  on different means, and JAX's f32 center makes its own coordinates
+  inexact; indices equal except where two candidates at the cut lie
+  within that tolerance; every returned index's recomputed d² equals the
+  returned d² exactly; and against scipy's ``cKDTree`` as well.
+* ``estimate_normals`` on the same graph (JAX's k = 50 lists, computed
+  once for the file): normals up to sign within 1e-5 on rows whose two
+  smallest eigenvalues are separated (gap ≥ 5% of the largest),
+  curvature within 1e-5 (tests/test_torch_fused.py's rule).
 """
 
-import jax
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,7 +32,6 @@ from buildingsegment_tpu.ops.knn import (
     knn_window_sorted as jax_window,
 )
 from buildingsegment_tpu.ops.normals import estimate_normals as jax_normals
-from buildingsegment_tpu.ops.pallas_knn import knn_pallas as jax_pallas
 from buildingsegment_tpu.utils.synthetic import make_building_cloud
 from buildingsegment_tpu_torch.core.morton import morton_argsort
 from buildingsegment_tpu_torch.ops.knn import (
@@ -42,11 +41,6 @@ from buildingsegment_tpu_torch.ops.knn import (
     masked_center,
 )
 from buildingsegment_tpu_torch.ops.normals import estimate_normals
-from buildingsegment_tpu_torch.ops.pallas_knn import (
-    _prepare,
-    knn_exact_reference,
-    knn_pallas,
-)
 
 TOL = dict(rtol=1e-6, atol=0.01)
 T = lambda a: torch.from_numpy(np.array(a))
@@ -70,6 +64,19 @@ def scene():
     pos, mask = _padded(pts, 9216)
     order = np.asarray(jax_argsort(jnp.asarray(pos), jnp.asarray(mask)))
     return pos[order], mask[order]
+
+
+@pytest.fixture(scope="module")
+def jax_graph(scene):
+    """JAX's brute ``knn`` of the scene at k → (idx, d2) as numpy, each k
+    computed once for the file."""
+    pos, mask = scene
+
+    @functools.lru_cache(maxsize=None)
+    def graph(k):
+        return tuple(np.asarray(a) for a in jax_knn(jnp.asarray(pos),
+                                                    jnp.asarray(mask), k=k))
+    return graph
 
 
 def _random(seed, n, cap, extent):
@@ -131,74 +138,11 @@ def test_knn_window_sorted_exact(scene):
 
 
 @pytest.mark.parametrize("k", [16, 50])
-def test_brute_knn_matches_jax(scene, k):
+def test_brute_knn_matches_jax(scene, jax_graph, k):
     pos, mask = scene
-    ji, jd = (np.asarray(a) for a in jax_knn(jnp.asarray(pos),
-                                             jnp.asarray(mask), k=k))
+    ji, jd = jax_graph(k)
     ti, td = (a.numpy() for a in knn(T(pos), T(mask), k))
     _check(ti, td, ji, jd, pos, mask)
-
-
-@pytest.mark.parametrize("k", [16, 50])
-def test_knn_pallas_matches_jax_kernel(scene, k):
-    pos, mask = scene
-    ji, jd = (np.asarray(a) for a in jax_pallas(
-        jnp.asarray(pos), jnp.asarray(mask), k=k, interpret=True))
-    ti, td = (a.numpy() for a in knn_pallas(T(pos), T(mask), k))
-    _check(ti, td, ji, jd, pos, mask)
-
-
-def test_knn_pallas_padding_and_small_clouds():
-    """tests/test_pallas_knn.py's case: 3 points in 128 rows."""
-    pts = np.array([[0, 0, 0], [5, 0, 0], [0, 5, 0]], np.int32)
-    pos, mask = _padded(pts, 128)
-    ji, jd = (np.asarray(a) for a in jax_pallas(
-        jnp.asarray(pos), jnp.asarray(mask), k=6, query_tile=128,
-        cand_tile=128, interpret=True))
-    ti, td = (a.numpy() for a in knn_pallas(T(pos), T(mask), 6))
-    assert ti[0, 0] == 0 and set(ti[0, 1:3]) == {1, 2}
-    assert (ti[0, 3:] == 0).all()  # empty slots → self
-    assert (ti[3:] == np.arange(3, 128)[:, None]).all()
-    np.testing.assert_array_equal(ti, ji)
-    np.testing.assert_array_equal(td, jd)
-
-
-def test_knn_pallas_matches_resident_kernel(monkeypatch):
-    """The opt-in VMEM-resident Pallas kernel (sub-block gating active:
-    8,192 rows, 8 query tiles a step, 4 sub-blocks a candidate tile)
-    computes the same function; the env is read when JAX traces, so the
-    caches are cleared around it."""
-    pos, mask = _random(11, 8000, 8192, 20_000)
-    order = np.asarray(jax_argsort(jnp.asarray(pos), jnp.asarray(mask)))
-    pos, mask = pos[order], mask[order]
-    monkeypatch.setenv("BST_KNN_RESIDENT", "1")
-    jax.clear_caches()
-    try:
-        ji, jd = (np.asarray(a) for a in jax_pallas(
-            jnp.asarray(pos), jnp.asarray(mask), k=16, interpret=True))
-    finally:
-        monkeypatch.delenv("BST_KNN_RESIDENT")
-        jax.clear_caches()
-    ti, td = (a.numpy() for a in knn_pallas(T(pos), T(mask), 16))
-    _check(ti, td, ji, jd, pos, mask)
-
-
-def test_knn_exact_reference_rows_subset(scene):
-    """The plain version on a subset of query rows (how the card check
-    samples the 1M-row shape) equals those rows of the full run, and
-    every row is ascending by (d², index)."""
-    pos, mask = scene
-    cols, seed_d, seed_i, visit, visit_d2, counts, qt, ct, w_excl = _prepare(
-        T(pos), T(mask), 16)
-    args = (cols, seed_d, seed_i, visit, visit_d2, counts)
-    kw = dict(qt=qt, ct=ct, w_excl=w_excl)
-    full_d, full_i = knn_exact_reference(*args, **kw)
-    rows = torch.cat([torch.arange(128, 256), torch.arange(8960, 9216)])
-    sub_d, sub_i = knn_exact_reference(*args, rows=rows, **kw)
-    assert torch.equal(sub_d, full_d[rows]) and torch.equal(sub_i, full_i[rows])
-    dd, ii = full_d.numpy(), full_i.numpy()
-    assert ((dd[:, 1:] > dd[:, :-1])
-            | ((dd[:, 1:] == dd[:, :-1]) & (ii[:, 1:] >= ii[:, :-1]))).all()
 
 
 def _eigen_gap(pos, mask, idx, d, radius, max_nn):
@@ -216,10 +160,9 @@ def _eigen_gap(pos, mask, idx, d, radius, max_nn):
     return (ev[:, 1] - ev[:, 0]) / np.maximum(ev[:, 2], 1e-30), use.sum(1)
 
 
-def test_estimate_normals_matches_jax(scene):
+def test_estimate_normals_matches_jax(scene, jax_graph):
     pos, mask = scene
-    idx, d = (np.asarray(a) for a in jax_knn(jnp.asarray(pos),
-                                             jnp.asarray(mask), k=50))
+    idx, d = jax_graph(50)
     kw = dict(radius=300.0, max_nn=50)
     jn, jc = (np.asarray(a) for a in jax_normals(
         jnp.asarray(pos), jnp.asarray(mask), jnp.asarray(idx),
