@@ -82,8 +82,8 @@ launch_counts = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
-# the multi-scan pipeline launches kernels from its main and writer
-# threads: the first use builds and loads the library exactly once
+# the multi-scan pipeline runs on several threads: the first use builds
+# and loads the library exactly once
 _load_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -10,12 +10,14 @@ A machine with no C++ compiler keeps the numpy codec
 failed build or load raises: it is a fault, not a reason to switch
 codecs.  The codec declines, by a nonzero return, only what the numpy
 codec reads or rejects with the format's own error (an unreadable file,
-a header it does not parse, a short ascii line); the callers in
-``io/ply.py`` and ``io/png.py`` then take the numpy codec.
+a header it does not parse, no float x, y and z, a short ascii line);
+the callers in ``io/ply.py`` and ``io/png.py`` then take the numpy
+codec.
 
 :data:`native_calls` counts the calls into the library by entry point
 (each decode, encode or defilter), as ``kernels.launch_counts`` counts
-kernel launches.
+kernel launches; ``read_ply_declined`` counts the reads the library
+declined, which the numpy codec then took.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 _FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 #: entry point → calls into the library since the last reset
-native_calls = {"read_ply": 0, "write_ply": 0, "png_defilter": 0}
+native_calls = {"read_ply": 0, "read_ply_declined": 0, "write_ply": 0,
+                "png_defilter": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -157,6 +160,7 @@ def read_ply_native(path: str, position_scale: float = 1.0):
     flags = ctypes.c_int32(0)
     if lib.bst_ply_info(path.encode(), ctypes.byref(count),
                         ctypes.byref(flags)) != 0:
+        native_calls["read_ply_declined"] += 1
         return None
     n = count.value
     rows = max(n, 1)
@@ -176,6 +180,7 @@ def read_ply_native(path: str, position_scale: float = 1.0):
         _ptr(fi, ctypes.c_uint8), _ptr(la, ctypes.c_int32),
     )
     if rc != 0:
+        native_calls["read_ply_declined"] += 1
         return None
     from buildingsegment_tpu_torch.io.ply import HostPointCloud
 

@@ -1,14 +1,15 @@
 // Native PLY codec — fast host-side parse/serialize.
 //
-// The port's copy of buildingsegment_tpu/native/ply_codec.cpp (the same
-// code); buildingsegment_tpu_torch/native/binding.py builds it with g++
-// at first use.
+// The port's copy of buildingsegment_tpu/native/ply_codec.cpp, with its
+// own binary reader; buildingsegment_tpu_torch/native/binding.py builds
+// it with g++ at first use.
 //
 // C++ replacement for the reference's stream-based parser/serializer
 // (reference: tmc3/ply.cpp:88-504, a per-point ifs.read loop).  This
 // implementation is a fresh design for bulk throughput:
-//   * binary bodies: one fread + strided column extraction (no
-//     per-point virtual calls);
+//   * binary bodies: blocks of whole records read into one reused
+//     buffer, each chosen column decoded by a loop whose value type and
+//     byte order are fixed at compile time (no per-value branch);
 //   * ascii bodies: single buffer scan with strtod, no per-line
 //     tokenizer allocations;
 //   * output: positions quantized to int32 (value * scale, truncated
@@ -21,11 +22,13 @@
 // Thread-free by design: the codec is called from Python once per file;
 // parallelism comes from processing many scans, not many threads here.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <cmath>
+#include <memory>
 #include <string>
 #include <vector>
 
@@ -42,6 +45,8 @@ enum PropKind : int32_t {
   PROP_REFLECTANCE,
   PROP_FRAMEINDEX,
   PROP_LASERANGLE,
+  PROP_REFC,  // reflectance under its other name, read only without one
+  NUM_KINDS,
 };
 
 struct Prop {
@@ -56,6 +61,9 @@ struct Header {
   int64_t vertex_count = 0;
   int64_t body_offset = 0;
   std::vector<Prop> props;
+  // the property each kind is read from, -1 where none: the first of its
+  // kind, as the numpy codec's find picks (io/ply.py)
+  int column[NUM_KINDS];
   bool ok = false;
   std::string error;
 };
@@ -109,13 +117,36 @@ PropKind classify(const char* name, int size, char code) {
     if (!std::strcmp(name, "blue")) return PROP_BLUE;
   }
   if (size <= 2 && code != 'f') {
-    if (!std::strcmp(name, "reflectance") || !std::strcmp(name, "refc"))
-      return PROP_REFLECTANCE;
+    if (!std::strcmp(name, "reflectance")) return PROP_REFLECTANCE;
+    if (!std::strcmp(name, "refc")) return PROP_REFC;
     if (!std::strcmp(name, "frameindex")) return PROP_FRAMEINDEX;
   }
   // any scalar type (numpy parser: np.round(...).astype(int32))
   if (!std::strcmp(name, "laserangle")) return PROP_LASERANGLE;
   return PROP_OTHER;
+}
+
+// Pick once, before any value is read, the property each kind is read
+// from: the first of its kind, and `refc` only where no `reflectance` is.
+// Every other property becomes PROP_OTHER (skipped), so a later
+// duplicate never overwrites the first.  A file without float x, y and z
+// is declined: the numpy codec raises its error.
+bool choose_columns(Header& h) {
+  for (int k = 0; k < NUM_KINDS; ++k) h.column[k] = -1;
+  for (int i = 0; i < (int)h.props.size(); ++i) {
+    const int k = h.props[i].kind;
+    if (k != PROP_OTHER && h.column[k] < 0) h.column[k] = i;
+  }
+  if (h.column[PROP_REFLECTANCE] < 0)
+    h.column[PROP_REFLECTANCE] = h.column[PROP_REFC];
+  h.column[PROP_REFC] = -1;
+  for (int i = 0; i < (int)h.props.size(); ++i) {
+    Prop& p = h.props[i];
+    if (p.kind == PROP_REFC) p.kind = PROP_REFLECTANCE;
+    if (p.kind != PROP_OTHER && h.column[p.kind] != i) p.kind = PROP_OTHER;
+  }
+  return h.column[PROP_X] >= 0 && h.column[PROP_Y] >= 0 &&
+         h.column[PROP_Z] >= 0;
 }
 
 Header parse_header(FILE* f) {
@@ -137,7 +168,8 @@ Header parse_header(FILE* f) {
   while (fgets(line, sizeof line, f)) {
     if (starts_with(line, "end_header")) {
       h.body_offset = ftell(f);
-      h.ok = true;
+      h.ok = choose_columns(h);
+      if (!h.ok) h.error = "missing coordinates";
       return h;
     }
     char tmp[4096];
@@ -177,39 +209,106 @@ Header parse_header(FILE* f) {
   return h;
 }
 
-inline uint64_t byteswap(uint64_t v, int size) {
+inline uint8_t bswap(uint8_t v) { return v; }
+inline uint16_t bswap(uint16_t v) { return __builtin_bswap16(v); }
+inline uint32_t bswap(uint32_t v) { return __builtin_bswap32(v); }
+inline uint64_t bswap(uint64_t v) { return __builtin_bswap64(v); }
+
+template <int Size> struct Bits;
+template <> struct Bits<1> { using type = uint8_t; };
+template <> struct Bits<2> { using type = uint16_t; };
+template <> struct Bits<4> { using type = uint32_t; };
+template <> struct Bits<8> { using type = uint64_t; };
+
+// One value of type T stored at p (unaligned), in the file's byte order.
+template <typename T, bool Swap>
+inline T load(const uint8_t* p) {
+  typename Bits<sizeof(T)>::type raw;
+  std::memcpy(&raw, p, sizeof raw);
+  if (Swap) raw = bswap(raw);
+  T v;
+  std::memcpy(&v, &raw, sizeof v);
+  return v;
+}
+
+// The conversion of each output column, as the numpy codec makes it.
+// Positions: value × scale truncated toward zero (tmc3/ply.cpp:407-409).
+struct ToPosition {
+  using Out = int32_t;
+  template <typename T>
+  static Out apply(T v, double scale) { return (int32_t)((double)v * scale); }
+};
+struct ToUint16 {  // colours and reflectance
+  using Out = uint16_t;
+  template <typename T>
+  static Out apply(T v, double) { return (uint16_t)v; }
+};
+struct ToFrameIndex {  // modulo, as astype(uint8)
+  using Out = uint8_t;
+  template <typename T>
+  static Out apply(T v, double) { return (uint8_t)(int64_t)v; }
+};
+struct ToLaserAngle {  // round half to even, as np.round
+  using Out = int32_t;
+  template <typename T>
+  static Out apply(T v, double) { return (int32_t)std::nearbyint((double)v); }
+};
+
+// Decode `rows` records' values of one property, `stride` bytes apart
+// from src, into out[row0 * out_stride], out_stride elements apart.
+using ColumnFn = void (*)(const uint8_t* src, int64_t stride, int64_t rows,
+                          double scale, void* out, int64_t out_stride,
+                          int64_t row0);
+
+template <typename T, bool Swap, typename Op>
+void decode_column(const uint8_t* src, int64_t stride, int64_t rows,
+                   double scale, void* out, int64_t out_stride,
+                   int64_t row0) {
+  typename Op::Out* o =
+      static_cast<typename Op::Out*>(out) + row0 * out_stride;
+  for (int64_t i = 0; i < rows; ++i)
+    o[i * out_stride] = Op::apply(load<T, Swap>(src + i * stride), scale);
+}
+
+// The decoder of a property's declared type (prop_type's table).
+template <typename Op, bool Swap>
+ColumnFn typed_decoder(int size, char code) {
+  if (code == 'f')
+    return size == 4 ? decode_column<float, Swap, Op>
+                     : decode_column<double, Swap, Op>;
+  if (code == 'u') {
+    switch (size) {
+      case 1: return decode_column<uint8_t, Swap, Op>;
+      case 2: return decode_column<uint16_t, Swap, Op>;
+      case 4: return decode_column<uint32_t, Swap, Op>;
+      default: return decode_column<uint64_t, Swap, Op>;
+    }
+  }
   switch (size) {
-    case 2: return __builtin_bswap16((uint16_t)v);
-    case 4: return __builtin_bswap32((uint32_t)v);
-    case 8: return __builtin_bswap64(v);
-    default: return v;
+    case 1: return decode_column<int8_t, Swap, Op>;
+    case 2: return decode_column<int16_t, Swap, Op>;
+    case 4: return decode_column<int32_t, Swap, Op>;
+    default: return decode_column<int64_t, Swap, Op>;
   }
 }
 
-inline double read_scalar(const uint8_t* p, int size, char code, bool swap) {
-  uint64_t raw = 0;
-  std::memcpy(&raw, p, size);
-  if (swap) raw = byteswap(raw, size);
-  if (code == 'f') {
-    if (size == 4) {
-      float f;
-      uint32_t r32 = (uint32_t)raw;
-      std::memcpy(&f, &r32, 4);
-      return f;
-    }
-    double d;
-    std::memcpy(&d, &raw, 8);
-    return d;
-  }
-  if (code == 'u') return (double)raw;
-  // sign-extend
-  switch (size) {
-    case 1: return (double)(int8_t)raw;
-    case 2: return (double)(int16_t)raw;
-    case 4: return (double)(int32_t)raw;
-    default: return (double)(int64_t)raw;
-  }
+template <typename Op>
+ColumnFn decoder(const Prop& p, bool swap) {
+  return swap ? typed_decoder<Op, true>(p.type_size, p.type_code)
+              : typed_decoder<Op, false>(p.type_size, p.type_code);
 }
+
+// Records a binary body is read and decoded by: a block's bytes and its
+// output rows stay in a core's L2 cache between the read and the decode.
+constexpr int64_t kBlockRecords = 16384;
+
+// One chosen property of a binary body and where its values go.
+struct Column {
+  ColumnFn fn;
+  int64_t offset;  // bytes into the record
+  void* out;
+  int64_t out_stride;
+};
 
 }  // namespace
 
@@ -227,18 +326,10 @@ int bst_ply_info(const char* path, int64_t* count, int32_t* flags) {
   std::fclose(f);
   if (!h.ok) return -2;
   *count = h.vertex_count;
-  bool r = false, g = false, b = false, refl = false, fi = false,
-       la = false;
-  for (const auto& p : h.props) {
-    if (p.kind == PROP_RED) r = true;
-    if (p.kind == PROP_GREEN) g = true;
-    if (p.kind == PROP_BLUE) b = true;
-    if (p.kind == PROP_REFLECTANCE) refl = true;
-    if (p.kind == PROP_FRAMEINDEX) fi = true;
-    if (p.kind == PROP_LASERANGLE) la = true;
-  }
-  *flags = ((r && g && b) ? 1 : 0) | (refl ? 2 : 0) | (fi ? 4 : 0) |
-           (la ? 8 : 0);
+  auto has = [&](int kind) { return h.column[kind] >= 0; };
+  *flags = ((has(PROP_RED) && has(PROP_GREEN) && has(PROP_BLUE)) ? 1 : 0) |
+           (has(PROP_REFLECTANCE) ? 2 : 0) | (has(PROP_FRAMEINDEX) ? 4 : 0) |
+           (has(PROP_LASERANGLE) ? 8 : 0);
   return 0;
 }
 
@@ -316,56 +407,52 @@ int bst_ply_read(const char* path, double scale, int32_t* pos_out,
     return 0;
   }
 
-  // binary: bulk-read the body, strided extraction
-  int stride = 0;
-  for (const auto& p : h.props) stride += p.type_size;
-  std::vector<uint8_t> body((size_t)n * stride);
-  fseek(f, h.body_offset, SEEK_SET);
-  size_t got = fread(body.data(), 1, body.size(), f);
-  std::fclose(f);
-  int64_t avail = (int64_t)(got / stride);
-  if (avail > n) avail = n;
-
+  // binary: blocks of whole records, each chosen column decoded in turn
 #if __BYTE_ORDER__ == __ORDER_BIG_ENDIAN__
   const bool swap = !h.big_endian;
 #else
   const bool swap = h.big_endian;
 #endif
+  std::vector<int64_t> offset(h.props.size() + 1, 0);
+  for (size_t a = 0; a < h.props.size(); ++a)
+    offset[a + 1] = offset[a] + h.props[a].type_size;
+  const int64_t stride = offset.back();
 
-  int off = 0;
-  for (const auto& prop : h.props) {
-    const uint8_t* base = body.data() + off;
-    off += prop.type_size;
-    if (prop.kind == PROP_OTHER) continue;
-    for (int64_t i = 0; i < avail; ++i) {
-      double v = read_scalar(base + (size_t)i * stride, prop.type_size,
-                             prop.type_code, swap);
-      switch (prop.kind) {
-        case PROP_X: pos_out[i * 3 + 0] = (int32_t)(v * scale); break;
-        case PROP_Y: pos_out[i * 3 + 1] = (int32_t)(v * scale); break;
-        case PROP_Z: pos_out[i * 3 + 2] = (int32_t)(v * scale); break;
-        case PROP_GREEN:
-          if (color_out) color_out[i * 3 + 0] = (uint16_t)v;
-          break;
-        case PROP_BLUE:
-          if (color_out) color_out[i * 3 + 1] = (uint16_t)v;
-          break;
-        case PROP_RED:
-          if (color_out) color_out[i * 3 + 2] = (uint16_t)v;
-          break;
-        case PROP_REFLECTANCE:
-          if (refl_out) refl_out[i] = (uint16_t)v;
-          break;
-        case PROP_FRAMEINDEX:
-          if (fi_out) fi_out[i] = (uint8_t)(int64_t)v;
-          break;
-        case PROP_LASERANGLE:
-          if (la_out) la_out[i] = (int32_t)std::nearbyint(v);
-          break;
-        default: break;
-      }
-    }
+  std::vector<Column> cols;
+  auto add = [&](int kind, void* out, int64_t out_stride, auto op) {
+    const int a = h.column[kind];
+    if (a >= 0 && out != nullptr)
+      cols.push_back({decoder<decltype(op)>(h.props[a], swap), offset[a],
+                      out, out_stride});
+  };
+  if (pos_out)
+    for (int k = 0; k < 3; ++k) add(PROP_X + k, pos_out + k, 3, ToPosition{});
+  if (color_out) {  // internal (g, b, r) order (tmc3/ply.cpp:412-414)
+    add(PROP_GREEN, color_out + 0, 3, ToUint16{});
+    add(PROP_BLUE, color_out + 1, 3, ToUint16{});
+    add(PROP_RED, color_out + 2, 3, ToUint16{});
   }
+  add(PROP_REFLECTANCE, refl_out, 1, ToUint16{});
+  add(PROP_FRAMEINDEX, fi_out, 1, ToFrameIndex{});
+  add(PROP_LASERANGLE, la_out, 1, ToLaserAngle{});
+
+  const int64_t block_rows =
+      std::max<int64_t>(1, std::min(kBlockRecords, n));
+  std::unique_ptr<uint8_t[]> block(new uint8_t[block_rows * stride]);
+  fseek(f, h.body_offset, SEEK_SET);
+  for (int64_t row = 0; row < n;) {
+    const int64_t want = std::min(block_rows, n - row);
+    const size_t got = fread(block.get(), 1, (size_t)(want * stride), f);
+    // a truncated body: rows past the last whole record stay zero
+    // (tmc3/ply.cpp:431)
+    const int64_t rows = (int64_t)got / stride;
+    for (const Column& c : cols)
+      c.fn(block.get() + c.offset, stride, rows, scale, c.out,
+           c.out_stride, row);
+    if (rows < want) break;
+    row += rows;
+  }
+  std::fclose(f);
   return 0;
 }
 

@@ -31,8 +31,9 @@ Every ``knn_method`` runs:
 
 ``segment_files`` is the multi-scan pipeline (BASELINE config 5): a
 reader thread prefetches scans, the main thread runs the device
-pipeline, a writer thread fetches, colorizes and writes each labeled PLY
-and, with ``render_dir``, the three ortho PNGs (``raster/ortho.py``).
+pipeline and fetches the labels and the raster, a writer thread
+colorizes and writes each labeled PLY and, with ``render_dir``, the
+three ortho PNGs (``raster/ortho.py``).
 """
 
 from __future__ import annotations
@@ -456,11 +457,11 @@ def _run_device(batch: PointBatch, config: PipelineConfig,
     return shifted, seg, counters
 
 
-def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, counters,
-                   config, timings, t0) -> PipelineOutput:
-    """Fetch the labels and the plane table, colorize; ``counters`` (from
-    ``_run_device``) join the solve's diagnostics; ``timings["total"]``
-    runs from ``t0``."""
+def _fetch_output(cloud, shifted_h, lo_h, seg, counters,
+                  timings) -> PipelineOutput:
+    """Fetch the labels and the plane table; ``counters`` (from
+    ``_run_device``) join the solve's diagnostics.  The output holds host
+    arrays only, and its cloud no colours yet (:func:`_colorize`)."""
     n = cloud.count
     num_planes = seg.num_planes
     with annotate("device_to_host", timings):
@@ -469,22 +470,14 @@ def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, counters,
         p_normal = seg.plane_normal[:num_planes].cpu().numpy()
         p_center = seg.plane_center[:num_planes].cpu().numpy()
         diag = seg.diagnostics.cpu().numpy()
-
-    with annotate("colorize", timings):
-        colors = colorize_planes(
-            plane_idx, num_planes, low=config.color_low,
-            rng_range=config.color_range,
-        )
     # attribute passthrough: the reference's writer keeps reflectance
     # and frame index beside the new label colors (tmc3/ply.cpp:131-136)
     out_cloud = HostPointCloud(
         positions=shifted_h,
-        colors=colors,
         reflectances=cloud.reflectances,
         frame_idx=cloud.frame_idx,
         laser_angles=cloud.laser_angles,
     )
-    timings["total"] = time.perf_counter() - t0
     return PipelineOutput(
         cloud=out_cloud,
         plane_idx=plane_idx,
@@ -504,9 +497,20 @@ def _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg, counters,
             "occupied_cells_512mm": 0,
             **counters,
         },
-        device_shifted=shifted,
-        device_mask=mask,
     )
+
+
+def _colorize(out: PipelineOutput, config: PipelineConfig,
+              t0: float) -> PipelineOutput:
+    """Colour ``out``'s cloud by its labels (host work);
+    ``timings["total"]`` runs from ``t0``."""
+    with annotate("colorize", out.timings):
+        out.cloud.colors = colorize_planes(
+            out.plane_idx, out.num_planes, low=config.color_low,
+            rng_range=config.color_range,
+        )
+    out.timings["total"] = time.perf_counter() - t0
+    return out
 
 
 def segment_cloud(
@@ -527,8 +531,10 @@ def segment_cloud(
         batch, shifted_h, lo_h, config = _upload(cloud, config, dev, timings)
     shifted, seg, counters = _run_device(batch, config, signed_normals,
                                          timings)
-    return _finish_output(cloud, shifted_h, lo_h, shifted, batch.mask, seg,
-                          counters, config, timings, t0)
+    out = _colorize(_fetch_output(cloud, shifted_h, lo_h, seg, counters,
+                                  timings), config, t0)
+    out.device_shifted, out.device_mask = shifted, batch.mask
+    return out
 
 
 def dump_stages(
@@ -647,15 +653,18 @@ def segment_files(
 
     Each scan is padded to its :func:`_bucket_capacity`.  Host work
     overlaps the device from both sides: a reader thread decodes and
-    uploads up to two scans ahead, the main thread runs the device
-    pipeline, and a writer thread queues scan i's raster, fetches its
-    labels, colorizes, writes its PLY and encodes its PNGs while the main
-    thread runs scan i+1.  All threads use the device's default stream.
+    uploads up to two scans ahead; the main thread runs the device
+    pipeline, queues the raster and fetches the labels and the raster;
+    a writer thread colorizes, writes the PLY and encodes the PNGs of
+    scan i while the main thread runs scan i+1.  The writer does host
+    work only, so no scan's device buffers share the card with the next
+    scan's run.  The reader and the main thread use the device's default
+    stream.
     Each thread's stages are spans (``PipelineOutput``): the main thread
     waits inside ``wait.reader`` and ``wait.writer``.
     Returns one :class:`PipelineOutput` per scan, in input order, without
-    its device tensors (``device_shifted``/``device_mask`` are None): the
-    writer frees them once the scan is written.
+    its device tensors (``device_shifted``/``device_mask`` are None): they
+    are dropped once the labels and the raster are fetched.
     """
     input_paths = list(input_paths)
     output_paths = list(output_paths)
@@ -681,6 +690,25 @@ def segment_files(
         timings["host_to_device"] = timings["reader.load_scan"]
         return cloud, cfg, batch, shifted_h, lo_h, timings
 
+    def run_scan(cloud, cfg, batch, shifted_h, lo_h, timings):
+        """Main thread: run the device pipeline, queue the raster (it
+        reuses the positions on the device), fetch the labels and the
+        raster.  Returns the host output, the host raster (None without
+        ``render_dir``) and the run's start; the scan's device tensors
+        die with this call."""
+        t0 = time.perf_counter()
+        shifted, seg, counters = _run_device(batch, cfg, signed_normals,
+                                             timings)
+        rasters = None
+        if render_dir is not None:
+            with annotate("render.dispatch", timings):
+                rasters = dispatch_ortho(shifted_h, shifted, batch.mask, cfg)
+        out = _fetch_output(cloud, shifted_h, lo_h, seg, counters, timings)
+        if rasters is not None:
+            with annotate("render.finish", timings):
+                rasters = rasters.cpu()
+        return out, rasters, t0
+
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as rpool, \
             concurrent.futures.ThreadPoolExecutor(max_workers=1) as wpool:
         pending = [rpool.submit(load_scan, p) for p in input_paths[:2]]
@@ -695,12 +723,10 @@ def segment_files(
             pending[i] = None  # the batch lives only as long as its scan
             if i + 2 < len(input_paths):
                 pending.append(rpool.submit(load_scan, input_paths[i + 2]))
-            t0 = time.perf_counter()
-            shifted, seg, counters = _run_device(batch, cfg, signed_normals,
-                                                 timings)
+            out, rasters, t0 = run_scan(cloud, cfg, batch, shifted_h, lo_h,
+                                        timings)
             writes.append(wpool.submit(
-                _write_scan, cloud, shifted_h, lo_h, shifted, batch.mask,
-                seg, counters, cfg, timings, t0, in_path, out_path,
+                _write_scan, out, rasters, cfg, t0, in_path, out_path,
                 render_dir,
             ))
         outs = []
@@ -713,29 +739,20 @@ def segment_files(
         return outs
 
 
-def _write_scan(cloud, shifted_h, lo_h, shifted, mask, seg, counters, cfg,
-                timings, t0, in_path, out_path, render_dir) -> PipelineOutput:
-    """Writer thread: queue the raster (it reuses the positions on the
-    device), fetch and colorize, write the labeled PLY, then fetch the
-    rasters and write the PNGs.  ``cfg`` is the scan's configuration (the
-    caller's, with the scan's capacity and ``morton_small`` hint)."""
-    rasters = None
-    if render_dir is not None:
-        with annotate("render.dispatch", timings):
-            rasters = dispatch_ortho(shifted_h, shifted, mask, cfg)
-    out = _finish_output(cloud, shifted_h, lo_h, shifted, mask, seg,
-                         counters, cfg, timings, t0)
-    with annotate("write_ply", timings):
+def _write_scan(out, rasters, cfg, t0, in_path, out_path,
+                render_dir) -> PipelineOutput:
+    """Writer thread, host work only: colorize, write the labeled PLY,
+    then encode and write the PNGs of the fetched ``rasters``.  ``cfg`` is
+    the scan's configuration (the caller's, with the scan's capacity and
+    ``morton_small`` hint)."""
+    _colorize(out, cfg, t0)
+    with annotate("write_ply", out.timings):
         write_ply(out.cloud, out_path, position_scale=cfg.output_scale,
                   ascii=not cfg.output_binary)
     if rasters is not None:
-        with annotate("render.finish", timings):
+        with annotate("render.finish", out.timings):
             base = os.path.splitext(os.path.basename(in_path))[0]
             finish_ortho(rasters, os.path.join(render_dir, base))
-        timings["render"] = (timings["render.dispatch"]
-                             + timings["render.finish"])
-    # the raster was their last reader: a batch of thousands of scans
-    # would otherwise hold every scan's positions on the device (~15 MB a
-    # 1M-point scan) until it ends
-    out.device_shifted = out.device_mask = None
+        out.timings["render"] = (out.timings["render.dispatch"]
+                                 + out.timings["render.finish"])
     return out

@@ -155,7 +155,7 @@ def dispatch_ortho(
 ):
     """Queue the ortho raster on the device; :func:`finish_ortho` fetches it.
 
-    Split from :func:`render_ortho_views` so the multi-scan writer can
+    Split from :func:`render_ortho_views` so the multi-scan pipeline can
     queue the raster before it blocks on its label fetch.  The rasters
     come from ``device_shifted``/``device_mask`` (the run's padded
     positions, already on its device) on their device; the extent is the

@@ -9,11 +9,14 @@ OpenMP threads left free, and the writer thread's work on the CPU takes
 some), each labeled PLY
 reads back with its point count and colors, and each scan's directory
 holds the three PNGs, byte-equal to ``render_ortho_views`` of the
-single-scan output.
+single-scan output.  The writer gets host arrays only: the main thread
+fetches a scan's labels and raster before the next run, and does not
+wait for the writes.
 """
 
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ import pytest
 from buildingsegment_tpu.config import PipelineConfig as JaxPipelineConfig
 from buildingsegment_tpu.pipeline import _bucket_capacity as jax_bucket
 from buildingsegment_tpu_torch.config import PipelineConfig
+from buildingsegment_tpu_torch import pipeline
 from buildingsegment_tpu_torch.io.ply import HostPointCloud, read_ply, write_ply
 from buildingsegment_tpu_torch.pipeline import (
     _bucket_capacity,
@@ -114,3 +118,43 @@ def test_segment_files_missing_input(scans, tmp_path):
         segment_files([paths[0], str(tmp_path / "none.ply")],
                       [str(tmp_path / "a.ply"), str(tmp_path / "b.ply")],
                       _CFG, device="cpu")
+
+
+def test_runs_do_not_wait_for_the_writes(scans, tmp_path, monkeypatch):
+    """The main thread fetches each scan's labels and raster before the
+    next run and hands the writer host arrays only; a slow PLY write
+    holds up no run."""
+    paths, _ = scans
+    main = threading.get_ident()
+    events = []
+    fetched_all = threading.Event()
+    run, fetch = pipeline._run_device, pipeline._fetch_output
+    write = pipeline.write_ply
+
+    def spy_run(*args):
+        events.append("run")
+        return run(*args)
+
+    def spy_fetch(*args):
+        assert threading.get_ident() == main
+        events.append("fetched")
+        if events.count("fetched") == 3:
+            fetched_all.set()
+        return fetch(*args)
+
+    def slow_write(cloud, path, **kw):
+        # the first write ends only once the last scan is fetched
+        assert fetched_all.wait(timeout=30)
+        write(cloud, path, **kw)
+
+    monkeypatch.setattr(pipeline, "_run_device", spy_run)
+    monkeypatch.setattr(pipeline, "_fetch_output", spy_fetch)
+    monkeypatch.setattr(pipeline, "write_ply", slow_write)
+    order = [paths[0], paths[1], paths[0]]
+    outs = segment_files(order, [str(tmp_path / f"o{i}.ply") for i in
+                                 range(3)], _CFG, device="cpu",
+                         render_dir=str(tmp_path / "render"))
+    assert events == ["run", "fetched"] * 3
+    for i, out in enumerate(outs):
+        assert out.device_shifted is None and out.device_mask is None
+        assert read_ply(str(tmp_path / f"o{i}.ply")).count == out.cloud.count

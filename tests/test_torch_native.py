@@ -5,24 +5,31 @@ package's codec.
 * ``write_ply`` through the native codec writes the numpy codec's bytes
   (``write_ply_bytes``), attributes and all, and the JAX package's;
 * ``read_ply`` through it gives the numpy codec's arrays
-  (``read_ply_bytes``) on binary little- and big-endian and ascii files,
-  with and without attributes;
-* a file the native codec declines (a short ascii line) goes to the numpy
-  codec, which raises the format's error;
+  (``read_ply_bytes``), and the JAX package's, on binary little- and big-endian and ascii files,
+  with and without attributes, over the binary reader's matrix: float and
+  double positions in both byte orders, skipped properties, every
+  attribute, record counts around the reader's block, values whose ×1000
+  lies next to an integer, truncated bodies and duplicate names (the
+  first wins);
+* a file the native codec declines (a short ascii line, no z) goes to the
+  numpy codec, which raises the format's error, and is counted;
 * the PNG defilter equals ``defilter_numpy`` on every filter type;
 * ``native_calls`` counts each call into the library;
 * without a compiler the numpy codec serves (``native_available`` is
   False); a compiler that fails raises.
 """
 
+import re
 import struct
 import zlib
 
 import numpy as np
 import pytest
 
+from benchmark.reference.io import write_input_ply
 from buildingsegment_tpu.io.ply import (
     HostPointCloud as JaxHostPointCloud,
+    read_ply_bytes as jax_read_ply_bytes,
     write_ply_bytes as jax_write_ply_bytes,
 )
 from buildingsegment_tpu_torch.io import png
@@ -95,6 +102,7 @@ def test_read_equals_numpy_binary(rng, tmp_path, attrs):
     got = read_ply(str(path), position_scale=1000.0)
     assert binding.native_calls["read_ply"] == 1
     _assert_clouds_equal(got, read_ply_bytes(data, 1000.0))
+    _assert_clouds_equal(got, jax_read_ply_bytes(data, 1000.0))
 
 
 def test_read_equals_numpy_ascii_and_big_endian(rng, tmp_path):
@@ -114,6 +122,7 @@ def test_read_equals_numpy_ascii_and_big_endian(rng, tmp_path):
         got = read_ply(str(path), position_scale=1000.0)
         assert binding.native_calls["read_ply"] == 1, name
         _assert_clouds_equal(got, read_ply_bytes(data, 1000.0))
+        _assert_clouds_equal(got, jax_read_ply_bytes(data, 1000.0))
 
 
 def test_declined_file_takes_numpy_codec(tmp_path):
@@ -124,10 +133,146 @@ def test_declined_file_takes_numpy_codec(tmp_path):
     path.write_bytes(text)
     with pytest.raises(PlyError):
         read_ply_bytes(text)
+    binding.reset_native_calls()
     with pytest.raises(PlyError):
         read_ply(str(path))
+    assert binding.native_calls["read_ply"] == 1
+    assert binding.native_calls["read_ply_declined"] == 1
+    no_z = (b"ply\nformat binary_little_endian 1.0\nelement vertex 1\n"
+            b"property float x\nproperty float y\nend_header\n"
+            + struct.pack("<2f", 1.0, 2.0))
+    (tmp_path / "no_z.ply").write_bytes(no_z)
+    with pytest.raises(PlyError, match="missing coordinates"):
+        read_ply(str(tmp_path / "no_z.ply"))
+    assert binding.native_calls["read_ply_declined"] == 2
     with pytest.raises(FileNotFoundError):
         read_ply(str(tmp_path / "missing.ply"))
+    assert binding.native_calls["read_ply_declined"] == 3
+    assert binding.native_calls["read_ply"] == 1
+
+
+# records the binary reader decodes a block at a time
+_BLOCK = int(re.search(r"kBlockRecords = (\d+);",
+                       open(binding._SOURCE).read()).group(1))
+
+
+def _edge_coords(rng, n, dtype):
+    """Metres, negative and positive, a third of them the representable
+    neighbours of k / 1000, so that ×1000 lies just either side of an
+    integer."""
+    v = rng.uniform(-60.0, 60.0, n).astype(dtype)
+    k = rng.integers(-60_000, 60_000, n) / 1000.0
+    near = np.nextafter(k.astype(dtype), np.where(
+        rng.random(n) < 0.5, -np.inf, np.inf).astype(dtype))
+    return np.where(np.arange(n) % 3 == 0, near, v).astype(dtype)
+
+
+def _ply(props, n, order, rng, truncate=False):
+    """A PLY of ``props`` ((name, numpy type)) in byte order ``order``, or
+    ascii for "ascii", its values drawn from ``rng``."""
+    byte_order = "<" if order == "ascii" else order
+    dt = np.dtype([(f"c{i}", byte_order + t)
+                   for i, (_, t) in enumerate(props)])
+    recs = np.zeros(n, dt)
+    for i, (name, t) in enumerate(props):
+        if name in "xyz":
+            recs[f"c{i}"] = _edge_coords(rng, n, t)
+        elif name == "laserangle":  # ties round half to even
+            recs[f"c{i}"] = rng.integers(-400, 400, n) / 2.0
+        elif t[0] == "f":
+            recs[f"c{i}"] = rng.normal(size=n)
+        else:
+            info = np.iinfo(t)
+            recs[f"c{i}"] = rng.integers(info.min, info.max, n,
+                                         endpoint=True, dtype=t)
+    fmt = {"<": "binary_little_endian", ">": "binary_big_endian",
+           "ascii": "ascii"}[order]
+    head = f"ply\nformat {fmt} 1.0\nelement vertex {n}\n" + "".join(
+        f"property {_PLY_NAME[t]} {name}\n" for name, t in props)
+    if order == "ascii":
+        body = "".join(" ".join(str(v) for v in r) + "\n"
+                       for r in recs.tolist()).encode()
+    else:
+        body = recs.tobytes()
+    if truncate:  # the last record and a half are cut
+        body = body[:max(0, len(body) - dt.itemsize * 3 // 2)]
+    return (head + "element face 0\nproperty list uint8 int32 "
+            "vertex_index\nend_header\n").encode() + body
+
+
+_PLY_NAME = {"f4": "float", "f8": "double", "u1": "uchar", "u2": "uint16",
+             "i1": "char", "i2": "int16", "i4": "int32", "u4": "uint32",
+             "i8": "int64"}
+
+_XYZ = [("x", "P"), ("y", "P"), ("z", "P")]
+_LAYOUTS = {
+    "xyz": _XYZ,
+    "skipped": [("x", "P"), ("nx", "f4"), ("y", "P"), ("flags", "u1"),
+                ("z", "P"), ("intensity", "i4"), ("time", "f8"),
+                ("id", "u4")],
+    "attributes": _XYZ + [("red", "u1"), ("green", "u1"), ("blue", "u1"),
+                          ("reflectance", "i2"), ("frameindex", "u2"),
+                          ("laserangle", "f4")],
+    "x_twice": [("x", "P"), ("y", "P"), ("x", "P"), ("z", "P")],
+    "reflectance_then_refc": _XYZ + [("reflectance", "u2"), ("refc", "u1")],
+    "refc_then_reflectance": _XYZ + [("refc", "u2"), ("reflectance", "u1"),
+                                     ("refc", "u1")],
+    "colours_twice": _XYZ + [("blue", "u1"), ("green", "u1"), ("red", "u1"),
+                             ("frameindex", "u1"), ("red", "u1"),
+                             ("laserangle", "i2"), ("laserangle", "f8"),
+                             ("frameindex", "i2")],
+}
+_B = _BLOCK
+_ORDER_ID = {"<": "le", ">": "be", "ascii": "ascii"}
+_MATRIX = (
+    # the cells' layout (benchmark/reference/io.write_input_ply) at every
+    # record count around the block
+    [("cells", None, "<", n, False) for n in
+     (0, 1, _B - 1, _B, _B + 1, 3 * _B + 7)]
+    + [("cells", None, "<", 3 * _B + 7, True)]
+    + [(layout, t, o, _B + 1, False)
+       for layout in ("xyz", "skipped", "attributes")
+       for t in ("f4", "f8") for o in ("<", ">")]
+    + [("attributes", "f8", ">", 2 * _B, True),
+       ("skipped", "f4", "<", 1, True),
+       ("x_twice", "f4", "<", 1000, False),
+       ("x_twice", "f8", ">", 1000, False),
+       ("x_twice", "f4", "ascii", 50, False),
+       ("reflectance_then_refc", "f4", "<", 1000, False),
+       ("refc_then_reflectance", "f4", ">", 1000, False),
+       ("colours_twice", "f8", "<", 1000, False)]
+)
+
+
+@pytest.mark.parametrize(
+    "layout,pos_type,order,n,truncate", _MATRIX,
+    ids=[f"{la}-{t or 'f4'}-{_ORDER_ID[o]}-n{n}"
+         f"{'-truncated' if tr else ''}" for la, t, o, n, tr in _MATRIX])
+def test_read_matrix_equals_numpy(tmp_path, layout, pos_type, order, n,
+                                  truncate):
+    rng = np.random.default_rng(n + 17 * len(layout))
+    path = tmp_path / "m.ply"
+    if layout == "cells":
+        mm = rng.integers(-40_000, 40_000, (n, 3)).astype(np.int32)
+        write_input_ply(str(path), mm)
+        data = path.read_bytes()
+        if truncate:
+            data = data[:len(data) - 18]
+            path.write_bytes(data)
+    else:
+        props = [(name, pos_type if t == "P" else t)
+                 for name, t in _LAYOUTS[layout]]
+        data = _ply(props, n, order, rng, truncate)
+        path.write_bytes(data)
+    binding.reset_native_calls()
+    got = read_ply(str(path), position_scale=1000.0)
+    assert binding.native_calls["read_ply"] == 1
+    assert binding.native_calls["read_ply_declined"] == 0
+    want = read_ply_bytes(data, 1000.0)
+    _assert_clouds_equal(got, want)
+    _assert_clouds_equal(got, jax_read_ply_bytes(data, 1000.0))
+    if truncate and n:
+        assert not want.positions[-1].any()
 
 
 def _png_scanlines(rng, h, w, c):

@@ -6,7 +6,8 @@ the flag it reads follows every profiler setting on every thread.  A
 ``profiling.trace`` of ``segment_file`` holds a span at each host stage
 and one ``seg.sync`` a device → host read the solve counts; a trace of
 ``segment_files`` (and of the CLI's ``--batch``) holds the reader's and
-the writer's spans on their own threads and the main thread's waits.
+the writer's spans on their own threads, the main thread's waits and
+its fetches, and no device stage on the writer's.
 Children stay inside their parents, and the solve takes no
 synchronize of its own.
 """
@@ -173,15 +174,18 @@ def test_segment_files_spans_by_thread(scans, tmp_path):
     main_tid = threading.get_native_id()
     main_spans = by_tid.pop(main_tid)
     assert {"wait.reader", "wait.writer", "stage1", "stage1.cells",
-            "segmentation", "unsort", "seg.sync"} <= main_spans
+            "segmentation", "unsort", "seg.sync", "render.dispatch",
+            "device_to_host", "render.finish"} <= main_spans
     assert not main_spans & {"reader.load_scan", "read_ply", "write_ply",
-                             "render.dispatch", "render.finish"}
+                             "colorize"}
     reader = [s for s in by_tid.values() if "reader.load_scan" in s]
     writer = [s for s in by_tid.values() if "write_ply" in s]
     assert len(reader) == 1 and len(writer) == 1
     assert {"read_ply", "dedup", *_UPLOAD} <= reader[0]
-    assert {"render.dispatch", "device_to_host", "colorize",
-            "render.finish"} <= writer[0]
+    # the writer's work is on the host: the colours, the PLY, the PNGs
+    assert {"colorize", "write_ply", "render.finish"} <= writer[0]
+    assert not writer[0] & {"render.dispatch", "device_to_host", "stage1",
+                            "segmentation"}
 
 
 def test_segment_files_timings(scans, tmp_path):
