@@ -69,7 +69,10 @@ from buildingsegment_tpu_torch.ops.pallas_knn import knn_pallas
 from buildingsegment_tpu_torch.ops.stats_sweep import knn_normals_window_stats
 from buildingsegment_tpu_torch.profiling import annotate
 from buildingsegment_tpu_torch.raster.ortho import dispatch_ortho, finish_ortho
-from buildingsegment_tpu_torch.seg.coarse import segment_planes_multigrid
+from buildingsegment_tpu_torch.seg.coarse import (
+    FINALIZE_COUNTERS,
+    segment_planes_multigrid,
+)
 from buildingsegment_tpu_torch.seg.colorize import colorize_planes
 from buildingsegment_tpu_torch.seg.region_grow import segment_planes
 from buildingsegment_tpu_torch.utils.device import synchronize
@@ -120,7 +123,9 @@ class PipelineOutput:
       path when it measures the spacing hint (the read of the
       occupied-cell count, after the synchronize);
     * the solve's spans inside ``segmentation``: ``mg.seed``,
-      ``mg.refine``, ``mg.finalize`` (every multigrid level),
+      ``mg.refine``, ``mg.finalize`` (every multigrid level) ⊃
+      ``mg.merge`` (the coplanar pair test and union), ``mg.adopt`` (the
+      hole adoption) and ``mg.cull`` (cull, renumber, dense table),
       ``seg.seed``, ``seg.sweep`` (one a sweep), ``seg.sync`` (one a
       device → host read, as many as ``host_syncs``), ``seg.finish``;
     * ``device_to_host``, ``colorize`` — the labels' fetch, the colours;
@@ -135,9 +140,9 @@ class PipelineOutput:
     The benchmark (``benchmark/metrics/``) reads ``read_ply``,
     ``write_ply``, ``host_to_device``, ``upload.copy``, ``upload.sync``,
     ``upload.hints``, ``stage1``, ``segmentation``, ``seg.sync``,
-    ``wait.reader`` and ``render``, the ``host_syncs`` and ``num_sweeps``
-    counters, and ``diagnostics["knn_tiles_listed"]`` over
-    ``["knn_query_tiles"]``.
+    ``wait.reader``, ``render`` and ``mg.finalize``, the ``host_syncs``
+    and ``num_sweeps`` counters, ``diagnostics["knn_tiles_listed"]`` over
+    ``["knn_query_tiles"]`` and ``diagnostics["finalize_rows"]``.
     """
 
     cloud: HostPointCloud          # shifted positions + label colors
@@ -152,9 +157,13 @@ class PipelineOutput:
     host_syncs: int = 0
     # the solve's diagnostics, and ``occupied_cells_512mm``: the occupied
     # 512 mm cells that the spacing hint was measured from (0: the hint
-    # was the configuration's, or the path reads none); on "pallas"
-    # ``knn_tiles_listed``, the candidate tiles #14's query tiles listed,
-    # and ``knn_query_tiles``, their number
+    # was the configuration's, or the path reads none);
+    # ``spacing_hint_mm``, the hint the solve used (0: none); on the
+    # multigrid path (one device) the outermost finalize's
+    # ``seg.coarse.FINALIZE_COUNTERS`` (``unlabeled_points`` among them)
+    # and ``finalize_rows``; on "pallas" ``knn_tiles_listed``,
+    # the candidate tiles #14's query tiles listed, and
+    # ``knn_query_tiles``, their number
     diagnostics: dict = dataclasses.field(default_factory=dict)
     # the run's shifted positions int32[C, 3] in input order (padding rows
     # hold PAD_COORD) and mask bool[C], on the run's device: the raster
@@ -211,9 +220,11 @@ def run_device_pipeline(
     measures the hint as ``estimate_spacing_mm`` does, from the occupied
     512 mm cells that stage 1's Morton order counts on the device, read
     after stage 1's synchronize, and ``counters`` receives that count as
-    ``occupied_cells_512mm``.  An empty cloud gets no hint.  The
-    exact-kNN paths read no hint; on "pallas" ``counters`` receives
-    ``knn_tiles_listed`` and ``knn_query_tiles``.
+    ``occupied_cells_512mm``.  An empty cloud gets no hint.  On the
+    window path ``counters`` receives the hint used as
+    ``spacing_hint_mm`` (0.0 for none).  The exact-kNN paths read no
+    hint; on "pallas" ``counters`` receives ``knn_tiles_listed`` and
+    ``knn_query_tiles``.
     """
     timings = {} if timings is None else timings
     if knn_method in ("brute", "pallas"):
@@ -259,6 +270,8 @@ def run_device_pipeline(
                 live, occupied = counts.tolist()
             spacing_hint_mm = _spacing_hint(live, occupied)
             counters["occupied_cells_512mm"] = occupied
+    if counters is not None:
+        counters["spacing_hint_mm"] = float(spacing_hint_mm or 0.0)
 
     # fine-level edge gate: widened past 2·thickness on sparse scans
     # when the density hint is proven
@@ -470,6 +483,10 @@ def _fetch_output(cloud, shifted_h, lo_h, seg, counters,
         p_normal = seg.plane_normal[:num_planes].cpu().numpy()
         p_center = seg.plane_center[:num_planes].cpu().numpy()
         diag = seg.diagnostics.cpu().numpy()
+        if seg.finalize_counts is not None:
+            counters = dict(zip(FINALIZE_COUNTERS,
+                                seg.finalize_counts.tolist()),
+                            finalize_rows=seg.finalize_rows, **counters)
     # attribute passthrough: the reference's writer keeps reflectance
     # and frame index beside the new label colors (tmc3/ply.cpp:131-136)
     out_cloud = HostPointCloud(
@@ -495,6 +512,7 @@ def _fetch_output(cloud, shifted_h, lo_h, seg, counters,
             "planes_over_capacity": int(diag[2]),
             "hit_max_sweeps": int(diag[3]),
             "occupied_cells_512mm": 0,
+            "spacing_hint_mm": 0.0,
             **counters,
         },
     )

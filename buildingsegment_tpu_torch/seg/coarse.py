@@ -25,7 +25,10 @@ are almost always samples of one plane, so:
    (the lookup kernel), dense plane table.  ``heal`` trims the outermost
    finalize: "merge" skips the adoption; False skips the merge too and
    takes the plain segment sums (the segment-sum kernel) in place of
-   the payload-moment pass.
+   the payload-moment pass.  Spans ``mg.merge``, ``mg.adopt`` and
+   ``mg.cull`` time the three parts inside ``mg.finalize``, and
+   ``SegmentationResult.finalize_counts`` counts their work
+   (:data:`FINALIZE_COUNTERS`), on the device, read by no sync.
 
 The [P, P] work runs on the first ``n_live`` table rows only: every
 plane id is at most ``n_live``, so the other rows are empty and take no
@@ -68,7 +71,7 @@ from buildingsegment_tpu_torch.seg.region_grow import (
     window_seeds,
 )
 
-__all__ = ["segment_planes_multigrid", "HEAL_MODES"]
+__all__ = ["segment_planes_multigrid", "HEAL_MODES", "FINALIZE_COUNTERS"]
 
 #: hole-adoption table width (the TPU kernel's lane count)
 ADOPT_K = 128
@@ -77,6 +80,14 @@ MERGE_JUMPS = 12
 #: ``heal`` values: the full heal (merge and hole adoption), the merge
 #: alone, neither
 HEAL_MODES = (True, "merge", False)
+#: ``SegmentationResult.finalize_counts``, in order: the hole rows
+#: (members of no plane after the refinement); the holes adopted; the
+#: live merged roots culled (at most th_point_count members); the flat
+#: live roots outside the ADOPT_K adoption lanes, whose holes no lane
+#: can take; the input rows labeled -1.  ``finalize_rows``, L, the side
+#: of the [L, L] pair test, is a host int beside them.
+FINALIZE_COUNTERS = ("holes", "holes_adopted", "roots_culled",
+                     "flat_roots_past_lanes", "unlabeled_points")
 
 
 def _group_sum(a: torch.Tensor) -> torch.Tensor:
@@ -129,6 +140,7 @@ def segment_planes_multigrid(
     spacing_hint_mm: Optional[float] = None,
     heal=True,
     shard_group=None,
+    count_finalize: bool = True,
 ) -> SegmentationResult:
     """Multigrid windowized plane segmentation (Morton-sorted input).
 
@@ -151,6 +163,9 @@ def segment_planes_multigrid(
     solvers call ``group``, which here is the coarsening factor, as in
     the JAX package): the inputs are this rank's rows of the sorted
     cloud (module docstring); ``heal=False`` has no sharded form.
+
+    ``count_finalize`` builds this level's ``finalize_counts`` (the
+    inner levels pass False: only the outermost counts are returned).
     """
     if heal not in HEAL_MODES:
         raise ValueError(f"heal={heal!r}, expected one of {HEAL_MODES}")
@@ -251,7 +266,8 @@ def segment_planes_multigrid(
         coarse = segment_planes_multigrid(
             gpos_i, gnrm, gmask, window=window, group=group,
             refine_sweeps=refine_sweeps, levels=levels - 1,
-            spacing_hint_mm=child_hint, shard_group=shard_group, **common,
+            spacing_hint_mm=child_hint, shard_group=shard_group,
+            count_finalize=False, **common,
         )
     else:
         coarse = segment_planes(gpos_i, gnrm, None, gmask, group=shard_group,
@@ -309,51 +325,70 @@ def segment_planes_multigrid(
                              table_cap=max_planes)[:L]
         cnt_o = acc[:, 0]
         live_o = cnt_o > 0
+        # a rank holds its own rows' holes: no whole-scan count without a
+        # collective, so the sharded solve counts nothing
+        count = count_finalize and shard_group is None
+        holes = mask & (pid == 0) if heal is True or count else None
         if heal:
             acc_o = acc
-            acc, parent, acc_m, c_t = _merge_coplanar(
-                acc_o, acc_mq, pc[:L], rows_p, cmag, edge_mm=edge_mm,
-                th_thickness=th_thickness, th_normal_cos=th_normal_cos)
+            with annotate("mg.merge", timings):
+                acc, parent, acc_m, c_t = _merge_coplanar(
+                    acc_o, acc_mq, pc[:L], rows_p, cmag, edge_mm=edge_mm,
+                    th_thickness=th_thickness, th_normal_cos=th_normal_cos)
         else:
             parent = rows_p
         adopted = adopt_row = None
+        n_adopted = flat_past = torch.zeros((), dtype=torch.int64,
+                                            device=dev)
         if heal is True:
-            adopted, adopt_row, acc = _adopt_holes(
-                acc, acc_o, acc_m, c_t, parent, payload, mask & (pid == 0),
-                edge_mm=edge_mm, th_thickness=th_thickness,
-                th_normal_cos=th_normal_cos, signed_normals=signed_normals,
-                group=shard_group)
+            with annotate("mg.adopt", timings):
+                adopted, adopt_row, acc, flat_past = _adopt_holes(
+                    acc, acc_o, acc_m, c_t, parent, payload, holes,
+                    edge_mm=edge_mm, th_thickness=th_thickness,
+                    th_normal_cos=th_normal_cos,
+                    signed_normals=signed_normals, group=shard_group)
+            n_adopted = adopted.sum()
 
-        # cull (> th_point_count) and renumber by rank of the merged root
-        keep = acc[:, 0].to(torch.int32) > th_point_count
-        rank = prefix_sum_i32(keep.to(torch.int32))
-        zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        lut = torch.cat([zero, torch.where(keep[parent] & live_o, rank[parent],
-                                           0).to(torch.int32)])
-        pid_member = torch.where(member, pid, 0).to(torch.int32)
-        if adopted is None:
-            new_id = table_lookup(pid_member, lut, n_live + 1)
-        else:
-            # disjoint supports: members and adopted holes, one launch
-            lut2 = torch.cat([zero,
-                              torch.where(keep, rank, 0).to(torch.int32)])
-            pid_adopt = torch.where(adopted, adopt_row + 1, 0).to(torch.int32)
-            new_id = table_lookup_pair(pid_member, lut, pid_adopt, lut2,
-                                       n_live + 1)
-        plane_idx = torch.where(new_id > 0, new_id, -1).to(torch.int32)
+        with annotate("mg.cull", timings):
+            # cull (> th_point_count) and renumber by rank of the merged root
+            keep = acc[:, 0].to(torch.int32) > th_point_count
+            rank = prefix_sum_i32(keep.to(torch.int32))
+            zero = torch.zeros(1, dtype=torch.int32, device=dev)
+            lut = torch.cat([zero, torch.where(
+                keep[parent] & live_o, rank[parent], 0).to(torch.int32)])
+            pid_member = torch.where(member, pid, 0).to(torch.int32)
+            if adopted is None:
+                new_id = table_lookup(pid_member, lut, n_live + 1)
+            else:
+                # disjoint supports: members and adopted holes, one launch
+                lut2 = torch.cat([zero,
+                                  torch.where(keep, rank, 0).to(torch.int32)])
+                pid_adopt = torch.where(adopted, adopt_row + 1,
+                                        0).to(torch.int32)
+                new_id = table_lookup_pair(pid_member, lut, pid_adopt, lut2,
+                                           n_live + 1)
+            plane_idx = torch.where(new_id > 0, new_id, -1).to(torch.int32)
 
-        # dense table: kept merged-root rows in rank order
-        slot = torch.where(keep, rank - 1, L).long()
-        old_of_new = torch.zeros(L + 1, dtype=torch.int64, device=dev)
-        old_of_new[slot] = rows_p
-        valid_new = (rows_p < rank[L - 1])[:, None]
-        acc_new = torch.zeros((max_planes, 8), dtype=torch.float32, device=dev)
-        acc_new[:L] = torch.where(valid_new, acc[old_of_new[:L]], 0.0)
-        cnt2 = acc_new[:, 0].to(torch.int32)
-        sc = torch.clamp_min(cnt2, 1).float()[:, None]
-        live2 = (cnt2 > 0)[:, None]
-        plane_normal = torch.where(live2, _unit(acc_new[:, 1:4] / sc), 0.0)
-        plane_center = torch.where(live2, acc_new[:, 4:7] / sc, 0.0)
+            # dense table: kept merged-root rows in rank order
+            slot = torch.where(keep, rank - 1, L).long()
+            old_of_new = torch.zeros(L + 1, dtype=torch.int64, device=dev)
+            old_of_new[slot] = rows_p
+            valid_new = (rows_p < rank[L - 1])[:, None]
+            acc_new = torch.zeros((max_planes, 8), dtype=torch.float32,
+                                  device=dev)
+            acc_new[:L] = torch.where(valid_new, acc[old_of_new[:L]], 0.0)
+            cnt2 = acc_new[:, 0].to(torch.int32)
+            sc = torch.clamp_min(cnt2, 1).float()[:, None]
+            live2 = (cnt2 > 0)[:, None]
+            plane_normal = torch.where(live2, _unit(acc_new[:, 1:4] / sc), 0.0)
+            plane_center = torch.where(live2, acc_new[:, 4:7] / sc, 0.0)
+            counts = None
+            if count:
+                roots = (parent == rows_p) & live_o
+                counts = torch.stack([
+                    holes.sum(), n_adopted, (roots & ~keep).sum(), flat_past,
+                    (mask & (new_id <= 0)).sum(),
+                ]).to(torch.int32)
         with annotate("seg.sync", timings):
             num_planes = int(rank[L - 1])
     return SegmentationResult(
@@ -368,6 +403,8 @@ def segment_planes_multigrid(
         diagnostics=coarse.diagnostics,
         host_syncs=coarse.host_syncs + 1,
         timings=timings,
+        finalize_counts=counts,
+        finalize_rows=L if counts is not None else 0,
     )
 
 
@@ -453,7 +490,8 @@ def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
     kernel).  ``acc`` holds the root sums, ``acc_o``, ``acc_m`` and
     ``c_t`` each plane's own sums, moments about its center and center.
     Returns (adopted bool[n], the adopting root row int32[n], the root
-    sums with the adopted rows' payload added)."""
+    sums with the adopted rows' payload added, the flat live roots
+    outside the lanes int64[])."""
     L = acc.shape[0]
     dev = acc.device
     cnt_o = acc_o[:, 0]
@@ -492,6 +530,8 @@ def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
     bk = _dot3(nk, ck)
     reachk = 2.0 * rk + edge_mm
     lane_ok = (top_cnt > 0) & flat_ok[top_row]
+    # the lanes hold distinct rows: the flat live roots less those in lanes
+    flat_past = (flat_ok & (cnt_r > 0)).sum() - lane_ok.sum()
     lane_rows = torch.zeros(ADOPT_K, dtype=torch.int32, device=dev)
     lane_rows[:k] = top_row.to(torch.int32)
     table = adopt_table(nk, ck, bk, ccdk, reachk * reachk, lane_ok)
@@ -507,4 +547,5 @@ def _adopt_holes(acc, acc_o, acc_m, c_t, parent, payload, holes, *, edge_mm,
     acc128 = _fold(group, adopt, (ADOPT_K, 8))
     adopted, adopt_row, _ = hold["out"]
     # fold the lane sums onto their root rows (top_row is a permutation)
-    return adopted, adopt_row, acc.index_add(0, top_row, acc128[:k])
+    return (adopted, adopt_row, acc.index_add(0, top_row, acc128[:k]),
+            flat_past)

@@ -112,6 +112,13 @@ class SegmentationResult:
             ``seg.sync`` — one a read counted in ``host_syncs`` —,
             ``seg.finish``; the multigrid levels add ``mg.*``), summed
             over spans of one name.  No span synchronizes.
+        finalize_counts: int32[5] on the solve's device, the multigrid
+            solve's outermost finalize (:data:`coarse.FINALIZE_COUNTERS`:
+            holes, holes adopted, live roots culled, flat live roots
+            outside the adoption lanes, rows labeled −1); None on the
+            other solves and on a sharded solve.
+        finalize_rows: L, the side of that finalize's pair test, where
+            ``finalize_counts`` is given; else 0.
     """
 
     plane_idx: torch.Tensor
@@ -123,6 +130,8 @@ class SegmentationResult:
     diagnostics: torch.Tensor
     host_syncs: int = 0
     timings: dict = dataclasses.field(default_factory=dict)
+    finalize_counts: Optional[torch.Tensor] = None
+    finalize_rows: int = 0
 
 
 def _sum3(t: torch.Tensor) -> torch.Tensor:

@@ -107,7 +107,8 @@ def test_segment_cloud_matches_jax(scene, method, monkeypatch):
     tiles = {k: b.diagnostics.pop(k) for k in ("knn_tiles_listed",
                                                 "knn_query_tiles")
              if k in b.diagnostics}
-    assert b.diagnostics == dict(a.diagnostics, occupied_cells_512mm=0)
+    assert b.diagnostics == dict(
+        a.diagnostics, occupied_cells_512mm=0, spacing_hint_mm=0.0)
     if method == "pallas":
         assert tiles["knn_query_tiles"] == 72
         assert 72 <= tiles["knn_tiles_listed"] <= 72 * 9

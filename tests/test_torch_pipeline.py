@@ -24,12 +24,17 @@ from buildingsegment_tpu.pipeline import segment_cloud as jax_segment_cloud
 from buildingsegment_tpu.utils.quality import bij_agreement
 from buildingsegment_tpu.utils.synthetic import make_building_cloud
 from buildingsegment_tpu_torch.config import PipelineConfig
+from buildingsegment_tpu_torch.core.quantize import (
+    estimate_spacing_mm,
+    spacing_bucket_mm,
+)
 from buildingsegment_tpu_torch.io.ply import HostPointCloud, read_ply, write_ply
 from buildingsegment_tpu_torch.pipeline import (
     segment_cloud,
     segment_file,
     segment_files,
 )
+from buildingsegment_tpu_torch.seg.coarse import FINALIZE_COUNTERS
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SINGLE = dict(knn_method="window", seg_group=1, pad_to_multiple=2048)
@@ -65,9 +70,19 @@ def test_segment_cloud_matches_jax(scene, cfg):
     np.testing.assert_array_equal(b.bbox_min, a.bbox_min)
     np.testing.assert_array_equal(b.plane_counts, a.plane_counts)
     np.testing.assert_allclose(b.plane_normals, a.plane_normals, atol=1e-4)
-    # the port reports the occupied 512 mm cells its hint was measured from
+    # the port reports the occupied 512 mm cells its hint was measured
+    # from, the hint and, on the multigrid solve, the finalize's counters
+    # (tests/test_torch_block_finalize.py), its unlabeled points among them
     cells = len(np.unique((pts - pts.min(axis=0)) // 512, axis=0))
-    assert b.diagnostics == dict(a.diagnostics, occupied_cells_512mm=cells)
+    keys = FINALIZE_COUNTERS + ("finalize_rows",)
+    finalize = {k: b.diagnostics[k] for k in keys if k in b.diagnostics}
+    assert len(finalize) == (len(keys) if cfg is _MULTIGRID else 0)
+    if finalize:
+        assert finalize["unlabeled_points"] == int((b.plane_idx == -1).sum())
+    assert b.diagnostics == dict(
+        a.diagnostics, occupied_cells_512mm=cells,
+        spacing_hint_mm=spacing_bucket_mm(estimate_spacing_mm(pts)),
+        **finalize)
 
 
 def test_segment_file_round_trip(scene, tmp_path):
